@@ -1,0 +1,91 @@
+"""Carry configuration and state over from the JAX package.
+
+`config_from_dict` rebuilds the port's LocusConfig from
+`dataclasses.asdict` of the JAX package's LocusConfig
+(`locus_tpu/config.py`).
+`state_from_numpy` turns a JAX `LocusState` whose leaves were converted to
+numpy arrays (its tree mapped through `np.asarray`) into the port's
+LocusState on a device, so a replay can run k scans in JAX and continue in
+the port. Neither function imports JAX: they read plain attributes.
+
+Layouts that differ: the map's cached 1-NN operand is (8, m_pad) in the
+JAX package (rows -2x, -2y, -2z, |t|^2, then zeros) and (m_pad, 4) here.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from locus_tpu_torch import config as cfg_mod
+from locus_tpu_torch import fusion, localization, odometry, pipeline
+from locus_tpu_torch.core.cloud import PointCloud
+from locus_tpu_torch.mapping.keyframe_map import MapState
+
+
+def _build_dataclass(cls, d: dict):
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        v = d[f.name]
+        sub = f.default_factory() if f.default_factory is not dataclasses.MISSING else None
+        if dataclasses.is_dataclass(sub) and isinstance(v, dict):
+            v = _build_dataclass(type(sub), v)
+        elif isinstance(v, list):
+            v = tuple(v)
+        kw[f.name] = v
+    return cls(**kw)
+
+
+def config_from_dict(d: dict) -> cfg_mod.LocusConfig:
+    """The port's LocusConfig from `dataclasses.asdict` of the JAX one."""
+    return _build_dataclass(cfg_mod.LocusConfig, d)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _tuple(cls, obj, device, **special):
+    """Instance of NamedTuple `cls` from the same-named attributes of
+    `obj`; `special` maps a field name to a converter of that attribute."""
+    vals = []
+    for name in cls._fields:
+        v = getattr(obj, name)
+        vals.append(special[name](v) if name in special else _tensor(v, device))
+    return cls(*vals)
+
+
+def _cloud(obj, device) -> PointCloud:
+    return _tuple(PointCloud, obj, device)
+
+
+def state_from_numpy(tree, device) -> pipeline.LocusState:
+    """The port's LocusState from a JAX LocusState with numpy leaves."""
+    dev = torch.device(device)
+    jmap = tree.map
+    nn_aug = np.asarray(jmap.nn_aug)[:4].T                       # (m_pad, 4)
+    map_state = _tuple(
+        MapState, jmap, dev,
+        cloud=lambda c: _cloud(c, dev),
+        nn_aug=lambda _: _tensor(np.ascontiguousarray(nn_aug), dev),
+    )
+    fuse = _tuple(
+        fusion.FusionState, tree.fuse, dev,
+        imu=lambda b: _tuple(fusion.ImuBuffer, b, dev),
+        odom=lambda b: _tuple(fusion.OdomBuffer, b, dev),
+    )
+    return pipeline.LocusState(
+        odom=_tuple(odometry.OdometryState, tree.odom, dev, reference=lambda c: _cloud(c, dev)),
+        loc=_tuple(localization.LocalizationState, tree.loc, dev),
+        map=map_state,
+        fuse=fuse,
+        voxel_leaf=_tensor(tree.voxel_leaf, dev),
+        last_keyframe_pose=_tensor(tree.last_keyframe_pose, dev),
+        previous_stamp=_tensor(tree.previous_stamp, dev),
+        velocities=_tuple(pipeline.VelocityBuffer, tree.velocities, dev),
+        open_space=_tensor(tree.open_space, dev),
+        stats=_tuple(pipeline.Stats, tree.stats, dev),
+    )

@@ -1,0 +1,140 @@
+"""Fixed-capacity point-cloud container (counterpart of
+`locus_tpu/core/cloud.py`).
+
+A struct of tensors with a static padding budget and a validity mask.
+Invalid lanes carry a far sentinel coordinate (PAD_COORD) so distance
+tests push them out of range without extra branching.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+# Far-away sentinel for padded points: 1e8^2 = 1e16 stays far inside f32
+# range after squaring.
+PAD_COORD = 1.0e8
+
+
+class PointCloud(NamedTuple):
+    """xyz (N,3) f32 (PAD_COORD on invalid lanes), normals (N,3) f32 (zero
+    on invalid lanes), intensity (N,) f32, mask (N,) bool."""
+
+    xyz: torch.Tensor
+    normals: torch.Tensor
+    intensity: torch.Tensor
+    mask: torch.Tensor
+
+    # -- constructors -------------------------------------------------------
+    @classmethod
+    def from_points(
+        cls,
+        xyz,
+        capacity: Optional[int] = None,
+        normals=None,
+        intensity=None,
+        mask=None,
+        device=None,
+    ) -> "PointCloud":
+        """Build a cloud from (M,3) points, padding/truncating to `capacity`."""
+        xyz = torch.as_tensor(xyz, dtype=torch.float32, device=device)
+        dev = xyz.device
+        n = xyz.shape[0]
+        cap = capacity if capacity is not None else n
+        mask = (
+            torch.ones((n,), dtype=torch.bool, device=dev)
+            if mask is None
+            else torch.as_tensor(mask, dtype=torch.bool, device=dev)
+        )
+        normals = (
+            torch.zeros((n, 3), dtype=torch.float32, device=dev)
+            if normals is None
+            else torch.as_tensor(normals, dtype=torch.float32, device=dev)
+        )
+        intensity = (
+            torch.zeros((n,), dtype=torch.float32, device=dev)
+            if intensity is None
+            else torch.as_tensor(intensity, dtype=torch.float32, device=dev)
+        )
+
+        def fit(a, fill):
+            if a.shape[0] >= cap:
+                return a[:cap]
+            pad = torch.full((cap - a.shape[0],) + a.shape[1:], fill, dtype=a.dtype, device=dev)
+            return torch.cat([a, pad], dim=0)
+
+        xyz = fit(xyz, PAD_COORD)
+        normals = fit(normals, 0.0)
+        intensity = fit(intensity, 0.0)
+        mask = fit(mask, False)
+        xyz = torch.where(mask[:, None], xyz, PAD_COORD)
+        return cls(xyz, normals, intensity, mask)
+
+    @classmethod
+    def empty(cls, capacity: int, device=None) -> "PointCloud":
+        return cls(
+            torch.full((capacity, 3), PAD_COORD, dtype=torch.float32, device=device),
+            torch.zeros((capacity, 3), dtype=torch.float32, device=device),
+            torch.zeros((capacity,), dtype=torch.float32, device=device),
+            torch.zeros((capacity,), dtype=torch.bool, device=device),
+        )
+
+    # -- basic ops ----------------------------------------------------------
+    @property
+    def capacity(self) -> int:
+        return self.xyz.shape[0]
+
+    def count(self) -> torch.Tensor:
+        """Number of valid points (0-d int32 tensor on the cloud's device)."""
+        return torch.sum(self.mask, dtype=torch.int32)
+
+    def with_mask(self, new_mask: torch.Tensor) -> "PointCloud":
+        """Apply an additional mask; invalidated lanes get the sentinel."""
+        m = self.mask & new_mask
+        return PointCloud(
+            torch.where(m[:, None], self.xyz, PAD_COORD),
+            torch.where(m[:, None], self.normals, 0.0),
+            torch.where(m, self.intensity, 0.0),
+            m,
+        )
+
+    def transform(self, T: torch.Tensor) -> "PointCloud":
+        """Rigidly transform points and rotate normals by a (4,4) transform."""
+        from locus_tpu_torch.geometry import se3
+
+        xyz = se3.transform_points(T, self.xyz)
+        normals = se3.rotate_vectors(T, self.normals)
+        xyz = torch.where(self.mask[:, None], xyz, PAD_COORD)
+        normals = torch.where(self.mask[:, None], normals, 0.0)
+        return PointCloud(xyz, normals, self.intensity, self.mask)
+
+    def compact(self, capacity: Optional[int] = None) -> "PointCloud":
+        """Stable partition of valid points to the front, as a gather by the
+        inverse of the partition permutation (no sort)."""
+        cap = capacity if capacity is not None else self.capacity
+        n = self.capacity
+        m = self.mask
+        nv = torch.cumsum(m.to(torch.int64), 0)
+        pos = torch.where(m, nv - 1, nv[-1] + torch.cumsum((~m).to(torch.int64), 0) - 1)
+        # pos is a permutation of 0..n-1, so the scatter has no duplicates
+        take = torch.empty((n,), dtype=torch.int64, device=m.device)
+        take.scatter_(0, pos, torch.arange(n, device=m.device))
+        take = take[:cap]
+        return PointCloud(
+            self.xyz[take], self.normals[take], self.intensity[take], self.mask[take]
+        )
+
+    def centroid(self) -> torch.Tensor:
+        """(3,) mean of valid points."""
+        w = self.mask.to(torch.float32)
+        denom = torch.clamp(torch.sum(w), min=1.0)
+        safe_xyz = torch.where(self.mask[:, None], self.xyz, 0.0)
+        return torch.sum(safe_xyz * w[:, None], dim=0) / denom
+
+
+def concatenate(clouds, capacity: Optional[int] = None) -> PointCloud:
+    """Concatenate clouds along the point axis (padding budget = sum)."""
+    out = PointCloud(*(torch.cat(parts, dim=0) for parts in zip(*clouds)))
+    if capacity is not None and capacity != out.capacity:
+        out = out.compact(capacity)
+    return out

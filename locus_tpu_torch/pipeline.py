@@ -1,0 +1,328 @@
+"""The LOCUS pipeline orchestrator: one step per lidar sweep (counterpart
+of `locus_tpu/pipeline.py`; reference Locus.cc:425-561).
+
+    preprocess (crop + voxel + normals)      [kernel B1 in the normals]
+    -> prior selection cascade               [IntegrateSensors]
+    -> scan-to-scan GICP                     [kernel B2 at SCAN_BT]
+    -> map 1-NN -> scan-to-submap GICP       [kernel B2 at BT, then SCAN_BT]
+    -> covariance / observability
+    -> keyframe insert + MSW refresh         [masked passes]
+
+plus the adaptive input-voxelization feedback, the keyframe policy with
+open/closed-space thresholds, and the velocity-gated MSW refresh.
+
+This slice ports the default configuration. The branches it does not
+port raise NotImplementedError naming their ROADMAP item: LOAM features,
+the grid/random/outlier/radius filters and kNN normals (A11), NDT (A10),
+the voxel-hash map (A12), keyframes at map resolution and the GT-map
+bootstrap (A8 follow-ups), the in-graph space monitor (A14).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch.profiler import record_function
+
+from locus_tpu_torch import fusion, localization, odometry
+from locus_tpu_torch.config import LocusConfig
+from locus_tpu_torch.core.cloud import PointCloud
+from locus_tpu_torch.geometry import se3
+from locus_tpu_torch.mapping.registry import mapper_fabric
+from locus_tpu_torch.ops import filters, normals as normals_op, voxel
+from locus_tpu_torch.ops.dispatch import resolve_device
+
+
+class Stats(NamedTuple):
+    scan_count: torch.Tensor            # int32
+    keyframe_count: torch.Tensor        # int32
+    rejected_scan_to_scan: torch.Tensor
+    rejected_scan_to_map: torch.Tensor
+    dropped_msgs: torch.Tensor          # seq-gap statistics (CheckMsgDropRate)
+    last_seq: torch.Tensor
+
+
+class VelocityBuffer(NamedTuple):
+    trans: torch.Tensor   # (V,) recent translational velocities
+    rot: torch.Tensor     # (V,) recent rotational velocities
+    ptr: torch.Tensor
+
+
+class LocusState(NamedTuple):
+    odom: odometry.OdometryState
+    loc: localization.LocalizationState
+    map: object                         # the cfg.mapper.structure's MapState
+    fuse: fusion.FusionState
+    voxel_leaf: torch.Tensor            # runtime-adaptive leaf size
+    last_keyframe_pose: torch.Tensor    # (4,4)
+    previous_stamp: torch.Tensor        # f32 seconds
+    velocities: VelocityBuffer
+    open_space: torch.Tensor            # bool (localizer space monitor)
+    stats: Stats
+
+
+class StepOutput(NamedTuple):
+    pose: torch.Tensor                  # (4,4) integrated world pose
+    covariance: torch.Tensor            # (6,6)
+    condition_number: torch.Tensor
+    prior_source: torch.Tensor          # fusion.PRIOR_*
+    scan_to_scan_accepted: torch.Tensor
+    scan_to_map_accepted: torch.Tensor
+    keyframe_inserted: torch.Tensor
+    msw_refreshed: torch.Tensor
+    num_points: torch.Tensor            # valid points after preprocessing
+    voxel_leaf: torch.Tensor
+    odom_iterations: torch.Tensor
+    loc_iterations: torch.Tensor
+    map_size: torch.Tensor
+    xy_cross_section: torch.Tensor      # -1: the in-graph space monitor is off
+
+
+def _check_supported(cfg: LocusConfig) -> None:
+    f = cfg.filtering
+    unported = [
+        (f.extract_features, "LOAM feature extraction: ROADMAP A11"),
+        (f.grid_filter or f.random_filter or f.outlier_filter or f.radius_filter,
+         "grid/random/outlier/radius filters: ROADMAP A11"),
+        (f.normals_method != "radius", "kNN normals: ROADMAP A11"),
+        (cfg.mapper.keyframe_at_map_resolution, "keyframe_at_map_resolution: ROADMAP A8"),
+        (cfg.mapper.num_shards != 1, "sharded map: ROADMAP A16"),
+        (cfg.b_monitor_space, "in-graph space monitor: ROADMAP A14"),
+        (cfg.b_run_with_gt_point_cloud, "GT point-cloud bootstrap: ROADMAP A8"),
+    ]
+    for cond, what in unported:
+        if cond:
+            raise NotImplementedError(what)
+
+
+def init_state(cfg: LocusConfig, initial_pose: Optional[torch.Tensor] = None, device=None) -> LocusState:
+    """Initial pipeline state on `device` (None: the CUDA device)."""
+    dev = resolve_device(device)
+    _check_supported(cfg)
+    if initial_pose is not None:
+        initial_pose = torch.as_tensor(initial_pose, dtype=torch.float32).to(dev)
+    v = cfg.mapper.velocity_buffer_size
+    i32 = dict(dtype=torch.int32, device=dev)
+    zero = torch.tensor(0, **i32)
+    return LocusState(
+        odom=odometry.init_state(cfg.scan_capacity, initial_pose, device=dev),
+        loc=localization.init_state(initial_pose, device=dev),
+        map=mapper_fabric(cfg.mapper).init_map(cfg.mapper, device=dev),
+        fuse=fusion.init_state(cfg.fusion, device=dev),
+        voxel_leaf=torch.tensor(cfg.filtering.grid_res, dtype=torch.float32, device=dev),
+        last_keyframe_pose=(
+            initial_pose.clone() if initial_pose is not None else se3.identity(dev)
+        ),
+        previous_stamp=torch.tensor(-1.0, dtype=torch.float32, device=dev),
+        velocities=VelocityBuffer(
+            trans=torch.zeros((v,), dtype=torch.float32, device=dev),
+            rot=torch.zeros((v,), dtype=torch.float32, device=dev),
+            ptr=zero.clone(),
+        ),
+        open_space=torch.tensor(False, device=dev),
+        stats=Stats(
+            scan_count=zero.clone(),
+            keyframe_count=zero.clone(),
+            rejected_scan_to_scan=zero.clone(),
+            rejected_scan_to_map=zero.clone(),
+            dropped_msgs=zero.clone(),
+            last_seq=torch.tensor(-1, **i32),
+        ),
+    )
+
+
+def init_state_from_config(
+    cfg: LocusConfig, initial_pose: Optional[torch.Tensor] = None, device=None
+) -> LocusState:
+    """Config-driven init: the fiducial initial pose when configured
+    (PointCloudOdometry.cc:50-70). The GT-map bootstrap is ROADMAP A8."""
+    dev = resolve_device(device)
+    if initial_pose is None and cfg.fiducial_position is not None:
+        q = torch.tensor(cfg.fiducial_orientation_wxyz or (1.0, 0.0, 0.0, 0.0), dtype=torch.float32, device=dev)
+        initial_pose = se3.make_transform(
+            se3.quat_to_matrix(q), torch.tensor(cfg.fiducial_position, dtype=torch.float32, device=dev)
+        )
+    return init_state(cfg, initial_pose, device=dev)
+
+
+def preprocess(raw: PointCloud, leaf, cfg: LocusConfig) -> PointCloud:
+    """body crop -> voxel grid at the runtime leaf -> radius normals; a
+    scan at cfg.scan_capacity."""
+    f = cfg.filtering
+    pc = raw
+    if f.body_filter:
+        pc = filters.crop_box(pc, f.box_min, f.box_max, negative=True)
+    # the raw scan carries no normals or intensity yet
+    pc = voxel.voxel_downsample(pc, leaf, capacity=cfg.scan_capacity, with_attributes=False)
+    return normals_op.estimate_normals_radius(pc, radius=f.normals_radius_scale * leaf)
+
+
+def step(
+    state: LocusState,
+    raw_scan: PointCloud,
+    stamp: torch.Tensor,
+    cfg: LocusConfig,
+    seq: Optional[torch.Tensor] = None,
+) -> tuple[LocusState, StepOutput]:
+    """Process one merged sweep (base frame)."""
+    _check_supported(cfg)
+    flat = cfg.b_is_flat_ground_assumption
+    dev = raw_scan.xyz.device
+    stamp = torch.as_tensor(stamp, dtype=torch.float32, device=dev)
+
+    # -- drop-rate statistics (Locus.cc:401-423) ---------------------------
+    stats = state.stats
+    if seq is not None:
+        seq = torch.as_tensor(seq, dtype=torch.int32, device=dev)
+        gap = torch.clamp(seq - stats.last_seq - 1, min=0)
+        gap = torch.where(stats.last_seq < 0, 0, gap)
+        stats = stats._replace(dropped_msgs=stats.dropped_msgs + gap, last_seq=seq)
+
+    # Stage scopes carry the JAX package's named_scope names; a
+    # torch.profiler trace buckets host and device time by them
+    # (tools/torch_stage_profile.py). Without a profiler they cost ~1 us.
+    with record_function("stage_pre"):
+        scan = preprocess(raw_scan, state.voxel_leaf, cfg)
+    num_points = scan.count()
+
+    # -- adaptive input voxelization (Locus.cc:780-810): the new leaf
+    # takes effect on the next scan.
+    if cfg.b_adaptive_input_voxelization:
+        next_leaf, _ = voxel.adaptive_leaf_update(
+            state.voxel_leaf, num_points, cfg.points_to_process_in_callback,
+            cfg.voxel_leaf_min, cfg.voxel_leaf_max,
+        )
+    else:
+        next_leaf = state.voxel_leaf
+    open_space = state.open_space
+    xy_cross_section = torch.tensor(-1.0, device=dev)
+
+    with record_function("stage_prior"):
+        sel = fusion.integrate_sensors(state.fuse, stamp, stamp, cfg.fusion, prev_stamp=state.previous_stamp)
+
+    # -- scan-to-scan ------------------------------------------------------
+    with record_function("stage_s2s"):
+        odo = odometry.update(state.odom, scan, prior=sel.prior, cfg=cfg.odometry, flat_ground=flat)
+
+    # -- scan-to-submap ----------------------------------------------------
+    loc0 = localization.motion_update(state.loc, odo.state.incremental)
+    fixed = localization.transform_points_to_fixed_frame(loc0, scan)
+    mp_impl = mapper_fabric(cfg.mapper)
+    with record_function("stage_ann"):
+        neighbors, ann_d2 = mp_impl.approx_nearest_neighbors(
+            state.map, fixed, return_d2=True, radius=cfg.mapper.ann_search_radius
+        )
+    neighbors_sensor = localization.transform_points_to_sensor_frame(loc0, neighbors)
+    with record_function("stage_s2m"):
+        meas = localization.measurement_update(
+            loc0, scan, neighbors_sensor, cfg=cfg.localization, flat_ground=flat
+        )
+
+    # On the first scan there is no map: keep the initial pose.
+    have_map = state.map.num_keyframes > 0
+    loc_state = localization.LocalizationState(
+        *(torch.where(have_map, new, old) for new, old in zip(meas.state, loc0))
+    )
+    pose = torch.where(
+        have_map,
+        loc_state.integrated,
+        torch.where(odo.performed, odo.state.integrated, loc0.integrated),
+    )
+
+    # -- velocity buffer (for MSW gating) ----------------------------------
+    dt = torch.clamp(stamp - state.previous_stamp, min=1e-3)
+    first = state.previous_stamp < 0
+    inc = loc_state.incremental
+    v_t = torch.where(first, 0.0, se3.translation_norm(inc) / dt)
+    v_r = torch.where(first, 0.0, se3.rotation_angle(se3.rotation(inc)) / dt)
+    vb = state.velocities
+    vi = (vb.ptr % vb.trans.shape[0]).to(torch.int64).reshape(1)
+    vb = VelocityBuffer(
+        trans=vb.trans.index_copy(0, vi, v_t.reshape(1)),
+        rot=vb.rot.index_copy(0, vi, v_r.reshape(1)),
+        ptr=vb.ptr + 1,
+    )
+
+    # -- keyframe policy (Locus.cc:514-543, open/closed space :571-576) ----
+    delta_kf = se3.pose_delta(state.last_keyframe_pose, pose)
+    t_thresh = torch.where(
+        open_space,
+        cfg.translation_threshold_open_space_kf,
+        cfg.translation_threshold_closed_space_kf,
+    )
+    r_thresh = torch.where(
+        open_space,
+        cfg.rotation_threshold_open_space_kf,
+        cfg.rotation_threshold_closed_space_kf,
+    )
+    moved = (se3.translation_norm(delta_kf) > t_thresh) | (
+        se3.rotation_angle(se3.rotation(delta_kf)) > r_thresh
+    )
+    is_first = state.stats.scan_count == 0
+    want_keyframe = (is_first | moved) & bool(cfg.b_add_keyframes_enabled)
+
+    # Map updates are masked passes (enabled=flag), as in the JAX package.
+    if cfg.b_add_keyframes_enabled:
+        # Novelty distances come from the ANN pass at the predicted pose,
+        # off from the final pose by the measurement correction (~cm).
+        with record_function("stage_kf"):
+            new_map = mp_impl.insert_keyframe(
+                state.map, scan.transform(pose), cfg.mapper, nearest_d2=ann_d2, enabled=want_keyframe
+            )
+    else:
+        new_map = state.map
+    last_kf_pose = torch.where(want_keyframe, pose, state.last_keyframe_pose)
+
+    # -- MSW refresh (Locus.cc:536-538; velocity gates lo_settings:47-62) --
+    if cfg.mapper.b_enable_msw:
+        pos = se3.translation(pose)
+        moved_msw = (
+            torch.linalg.norm(pos - new_map.last_refresh_position)
+            > cfg.mapper.translation_threshold_msw
+        )
+        slow = (torch.mean(vb.trans) < cfg.mapper.translational_velocity_threshold) & (
+            torch.mean(vb.rot) < cfg.mapper.rotational_velocity_threshold
+        )
+        want_refresh = moved_msw & slow & (new_map.num_keyframes > 0)
+        with record_function("stage_msw"):
+            new_map = mp_impl.refresh_msw(new_map, pos, cfg.mapper, enabled=want_refresh)
+    else:
+        want_refresh = torch.tensor(False, device=dev)
+
+    stats = stats._replace(
+        scan_count=stats.scan_count + 1,
+        keyframe_count=stats.keyframe_count + want_keyframe.to(torch.int32),
+        rejected_scan_to_scan=stats.rejected_scan_to_scan
+        + (odo.performed & ~odo.accepted).to(torch.int32),
+        rejected_scan_to_map=stats.rejected_scan_to_map
+        + (have_map & ~meas.accepted).to(torch.int32),
+    )
+    new_state = LocusState(
+        odom=odo.state,
+        loc=loc_state,
+        map=new_map,
+        fuse=sel.state,
+        voxel_leaf=next_leaf,
+        last_keyframe_pose=last_kf_pose,
+        previous_stamp=stamp,
+        velocities=vb,
+        open_space=open_space,
+        stats=stats,
+    )
+    out = StepOutput(
+        pose=pose,
+        covariance=loc_state.covariance,
+        condition_number=loc_state.condition_number,
+        prior_source=sel.source,
+        scan_to_scan_accepted=odo.accepted,
+        scan_to_map_accepted=meas.accepted & have_map,
+        keyframe_inserted=want_keyframe,
+        msw_refreshed=want_refresh,
+        num_points=num_points,
+        voxel_leaf=state.voxel_leaf,
+        odom_iterations=odo.icp.iterations,
+        loc_iterations=meas.icp.iterations,
+        map_size=mp_impl.map_size(new_map),
+        xy_cross_section=xy_cross_section,
+    )
+    return new_state, out

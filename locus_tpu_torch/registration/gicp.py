@@ -1,0 +1,232 @@
+"""Generalized-ICP on tensors (counterpart of
+`locus_tpu/registration/gicp.py`), production disk-covariance path.
+
+Objective: min_x sum_i r_i^T M_i r_i with M_i = (C2_j + R C1_i R^T)^{-1},
+r_i = T(x) p_i - q_j, each covariance a plane disk I - (1-eps) n n^T built
+from the normals. Per outer iteration the correspondences come from the
+radius-bounded 1-NN (kernel B2 at SCAN_BT), then `inner_iterations`
+Gauss-Newton steps on the SE(3) tangent with M and the pairs fixed.
+
+Loop control: the JAX package runs the outer loop as a `lax.while_loop`
+on a device-side test and the final re-lookup under `lax.cond`. Here both
+tests are read on the host (one `.item()` per outer iteration), so the
+iteration count equals JAX's and no NN pass is launched for nothing.
+
+The `recompute` and `adaptive` covariance modes and caller-supplied
+covariances come with ROADMAP item A11 (they need kNN) and raise here.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from locus_tpu_torch.config import RegistrationConfig
+from locus_tpu_torch.core.cloud import PointCloud
+from locus_tpu_torch.geometry import se3
+from locus_tpu_torch.ops.kernels.nn import (
+    SCAN_BT,
+    build_nn_target,
+    chunk_boxes,
+    nearest_bounded_pre,
+)
+from locus_tpu_torch.utils.linalg import chol_solve
+
+
+class GICPResult(NamedTuple):
+    transform: torch.Tensor        # (4,4) source->target transform (incl. guess)
+    converged: torch.Tensor        # bool
+    iterations: torch.Tensor       # int32 outer iterations used
+    fitness: torch.Tensor          # mean squared corr distance at convergence
+    correspondences: torch.Tensor  # (N,) int64 target index per source point
+    corr_mask: torch.Tensor        # (N,) bool valid & gated correspondences
+    num_correspondences: torch.Tensor  # int32
+
+
+def _sym3_two_disks(a: torch.Tensor, b: torch.Tensor, epsilon: float):
+    """Components of (I - k a a^T) + (I - k b b^T), k = 1-eps: the sum of
+    the rotated source disk and the target disk covariances."""
+    k = 1.0 - epsilon
+    ax, ay, az = a[:, 0], a[:, 1], a[:, 2]
+    bx, by, bz = b[:, 0], b[:, 1], b[:, 2]
+    return (
+        2.0 - k * (ax * ax + bx * bx),
+        -k * (ax * ay + bx * by),
+        -k * (ax * az + bx * bz),
+        2.0 - k * (ay * ay + by * by),
+        -k * (ay * az + by * bz),
+        2.0 - k * (az * az + bz * bz),
+    )
+
+
+def _inv_sym3(A, ridge: float = 1e-6):
+    """Adjugate inverse of symmetric 3x3 in component form."""
+    a, b, c, d, e, f = A
+    a = a + ridge
+    d = d + ridge
+    f = f + ridge
+    co00 = d * f - e * e
+    co01 = c * e - b * f
+    co02 = b * e - c * d
+    co11 = a * f - c * c
+    co12 = b * c - a * e
+    co22 = a * d - b * b
+    det = a * co00 + b * co01 + c * co02
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-20, 1e-20, det)
+    return (
+        co00 * inv_det, co01 * inv_det, co02 * inv_det,
+        co11 * inv_det, co12 * inv_det, co22 * inv_det,
+    )
+
+
+def _gauss_newton_step_comps(p_cur, q, M, w, lm_lambda):
+    """Component-form weighted GN step for min sum_i w_i r^T M r with
+    r = exp(xi) p - q and J = [I | -skew(p)]. The 21 unique entries of
+    H = sum J^T M J and the 6 of g are column sums of one (N, 27) stack."""
+    px, py, pz = p_cur[:, 0], p_cur[:, 1], p_cur[:, 2]
+    rx = px - q[:, 0]
+    ry = py - q[:, 1]
+    rz = pz - q[:, 2]
+    m00, m01, m02, m11, m12, m22 = (m * w for m in M)
+
+    # B = M @ skew(p)
+    b00 = m01 * pz - m02 * py
+    b10 = m11 * pz - m12 * py
+    b20 = m12 * pz - m22 * py
+    b01 = -m00 * pz + m02 * px
+    b11 = -m01 * pz + m12 * px
+    b21 = -m02 * pz + m22 * px
+    b02 = m00 * py - m01 * px
+    b12 = m01 * py - m11 * px
+    b22 = m02 * py - m12 * px
+
+    # C = P^T M P = -skew(p) @ B
+    c00 = -(-pz * b10 + py * b20)
+    c01 = -(-pz * b11 + py * b21)
+    c02 = -(-pz * b12 + py * b22)
+    c11 = -(pz * b01 - px * b21)
+    c12 = -(pz * b02 - px * b22)
+    c22 = -(-py * b02 + px * b12)
+
+    mr0 = m00 * rx + m01 * ry + m02 * rz
+    mr1 = m01 * rx + m11 * ry + m12 * rz
+    mr2 = m02 * rx + m12 * ry + m22 * rz
+    gw0 = -pz * mr1 + py * mr2
+    gw1 = pz * mr0 - px * mr2
+    gw2 = -py * mr0 + px * mr1
+
+    s = torch.stack(
+        [m00, m01, m02, m11, m12, m22,
+         b00, b01, b02, b10, b11, b12, b20, b21, b22,
+         c00, c01, c02, c11, c12, c22,
+         mr0, mr1, mr2, gw0, gw1, gw2],
+        dim=1,
+    ).sum(dim=0)
+    H_tt = s[[0, 1, 2, 1, 3, 4, 2, 4, 5]].view(3, 3)
+    H_tw = -s[6:15].view(3, 3)
+    H_ww = s[[15, 16, 17, 16, 18, 19, 17, 19, 20]].view(3, 3)
+    g = s[21:27]
+    H = torch.cat(
+        [torch.cat([H_tt, H_tw], dim=1), torch.cat([H_tw.T, H_ww], dim=1)], dim=0
+    )
+    H = H + lm_lambda * torch.eye(6, dtype=H.dtype, device=H.device) * torch.clamp(
+        torch.trace(H) / 6.0, min=1.0
+    ) * 1e-6
+    return -chol_solve(H, g)
+
+
+def _scaled_delta(T_prev: torch.Tensor, T_new: torch.Tensor, cfg: RegistrationConfig):
+    """Reference convergence metric (gicp.hpp:526-541): elementwise |dT|
+    scaled by 1/rotation_epsilon on the 3x3 block and 1/tf_epsilon
+    elsewhere; converged when the max < 1."""
+    diff = torch.abs(T_prev - T_new)
+    scale = torch.full((4, 4), 1.0 / cfg.tf_epsilon, dtype=diff.dtype, device=diff.device)
+    scale[:3, :3] = 1.0 / cfg.rotation_epsilon
+    return torch.max(diff * scale)
+
+
+def gicp_register(
+    source: PointCloud,
+    target: PointCloud,
+    guess: Optional[torch.Tensor] = None,
+    cfg: RegistrationConfig = RegistrationConfig(),
+    source_cov: Optional[torch.Tensor] = None,
+    target_cov: Optional[torch.Tensor] = None,
+) -> GICPResult:
+    """Align `source` to `target`; returns the source->target transform.
+    The guess pre-warps the source; the iterated transform starts at
+    identity and the result is T_iter @ guess."""
+    mode = cfg.covariance_mode
+    if cfg.recompute_covariances and mode == "normals":
+        mode = "recompute"
+    if mode != "normals" or source_cov is not None or target_cov is not None:
+        raise NotImplementedError(
+            f"GICP covariance mode {mode!r} / explicit covariances: ROADMAP A11"
+        )
+    dev = source.xyz.device
+    if guess is None:
+        guess = se3.identity(dev)
+
+    src0 = se3.transform_points(guess, source.xyz)
+    src0 = torch.where(source.mask[:, None], src0, source.xyz)  # keep sentinels
+    src0_normals = se3.rotate_vectors(guess, source.normals)
+    corr_dist2 = cfg.corr_dist * cfg.corr_dist
+
+    # The target is loop-invariant: build its operand and chunk boxes once.
+    t_aug = build_nn_target(target.xyz, bt=SCAN_BT)
+    c_min, c_max = chunk_boxes(target.xyz, target.mask, t_aug.shape[0], bt=SCAN_BT)
+
+    def nearest_fn(p):
+        d2, j = nearest_bounded_pre(
+            p, t_aug, target.xyz, c_min, c_max, float(cfg.corr_dist), bt=SCAN_BT
+        )
+        return torch.where(torch.isfinite(d2), d2, 1e12), j
+
+    n_src = source.capacity
+    T = se3.identity(dev)
+    it = 0
+    delta = torch.tensor(float("inf"), device=dev)
+    fitness = torch.tensor(float("inf"), device=dev)
+    ncorr = torch.tensor(0, dtype=torch.int32, device=dev)
+    j_fin = torch.zeros((n_src,), dtype=torch.int64, device=dev)
+    d2_fin = torch.full((n_src,), float("inf"), device=dev)
+    while it < cfg.iterations and bool(delta >= 1.0):
+        p = se3.transform_points(T, src0)
+        d2, j = nearest_fn(p)
+        w = (source.mask & target.mask[j] & (d2 <= corr_dist2)).to(torch.float32)
+        q = target.xyz[j]
+        # A = C2 + R C1 R^T = (I - k m m^T) + (I - k (Rn)(Rn)^T)
+        A = _sym3_two_disks(se3.rotate_vectors(T, src0_normals), target.normals[j], cfg.gicp_epsilon)
+        M = _inv_sym3(A)
+        T_new = T
+        for _ in range(cfg.inner_iterations):
+            p_cur = se3.transform_points(T_new, src0)
+            p_cur = torch.where(source.mask[:, None], p_cur, q)  # zero-residual pads
+            dx = _gauss_newton_step_comps(p_cur, q, M, w, cfg.levenberg_lambda)
+            T_new = se3.compose(se3.se3_exp(dx), T_new)
+        T_new = se3.make_transform(se3.orthonormalize(se3.rotation(T_new)), se3.translation(T_new))
+        delta = _scaled_delta(T, T_new, cfg)
+        wsum = torch.sum(w)
+        fitness = torch.sum(d2 * w) / torch.clamp(wsum, min=1.0)
+        ncorr = wsum.to(torch.int32)
+        j_fin, d2_fin = j, d2
+        T = T_new
+        it += 1
+
+    converged = delta < 1.0
+    # Exited on the iteration cap: the carried pairs may be stale, so
+    # re-search at the final pose (PointCloudLocalization.cc:327-336).
+    if cfg.final_correspondence_relookup and not bool(converged):
+        p_fin = se3.transform_points(T, src0)
+        p_fin = torch.where(source.mask[:, None], p_fin, src0)
+        d2_fin, j_fin = nearest_fn(p_fin)
+    corr_mask = source.mask & target.mask[j_fin] & (d2_fin <= corr_dist2)
+    return GICPResult(
+        transform=se3.compose(T, guess),
+        converged=converged,
+        iterations=torch.tensor(it, dtype=torch.int32, device=dev),
+        fitness=fitness,
+        correspondences=j_fin,
+        corr_mask=corr_mask,
+        num_correspondences=ncorr,
+    )

@@ -1,0 +1,141 @@
+"""The port's whole per-scan pipeline against the JAX package.
+
+(a) The golden replay: tests/data/golden_seq.npz under
+    small_cfg(fusion=FusionConfig(data_integration_mode=3)) within 2 cm of
+    tests/data/golden_poses.npy, the gate test_golden.py sets for JAX.
+(b) Scan by scan against locus_tpu.runner.run_sequence on a 12-scan
+    synthetic tunnel.
+(c) JAX runs 4 scans; its state goes through convert.state_from_numpy;
+    the port runs 4 more and is held against JAX's scans 5 to 8.
+
+Tolerances of (b) and (c): pose within 1e-2 m and 1e-2 rad per scan,
+keyframe decisions equal, map size within 0.5 %. The pose tolerance is
+what f32 allows on this sequence, not what the port would like: in
+several scans the scan-to-submap GICP ends on its iteration cap without
+converging, and where it ends then depends on rounding; thin
+neighbourhoods give normals that f32 cannot resolve. The JAX package's
+own two paths (XLA and Pallas, which differ only in such rounding)
+disagree by 6.2e-3 m on (b)'s sequence.
+"""
+import dataclasses
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from locus_tpu import pipeline as jpl
+from locus_tpu import runner as jrunner
+from locus_tpu.config import FusionConfig
+from locus_tpu.io.dataset import Sequence, make_tunnel_sequence
+from locus_tpu_torch import runner as trunner
+from locus_tpu_torch.convert import config_from_dict, state_from_numpy
+from locus_tpu_torch.io.dataset import Sequence as TSequence
+from tests.test_pipeline import small_cfg
+from tests.torch_helpers import pose_diff
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
+POSE_TOL_M = 1e-2
+POSE_TOL_RAD = 1e-2
+MAP_SIZE_RTOL = 5e-3
+
+
+def _port_cfg(jcfg):
+    return config_from_dict(dataclasses.asdict(jcfg))
+
+
+def _port_seq(seq):
+    return TSequence(**{f.name: getattr(seq, f.name) for f in dataclasses.fields(TSequence)})
+
+
+@pytest.fixture(scope="module")
+def tunnel():
+    return make_tunnel_sequence(num_scans=12, azimuth_steps=256, step=0.3, seed=1)
+
+
+def _assert_poses_close(tp, jp):
+    for i, (a, b) in enumerate(zip(tp, jp)):
+        dt, dr = pose_diff(a, b)
+        assert dt < POSE_TOL_M and dr < POSE_TOL_RAD, (i, dt, dr)
+
+
+def test_golden_trajectory():
+    seq = Sequence.load(os.path.join(DATA, "golden_seq.npz"))
+    cfg = _port_cfg(small_cfg(fusion=FusionConfig(data_integration_mode=3)))
+    poses, _, _ = trunner.run_sequence(_port_seq(seq), cfg, device="cpu")
+    golden = np.load(os.path.join(DATA, "golden_poses.npy"))
+    err = np.linalg.norm(poses[:, :3, 3] - golden[:, :3, 3], axis=1)
+    assert err.max() < 0.02, err.max()
+
+
+def test_scan_by_scan_matches_jax(tunnel):
+    jcfg = small_cfg(fusion=FusionConfig(data_integration_mode=3))
+    jp, jo, _ = jrunner.run_sequence(tunnel, jcfg)
+    tp, to, _ = trunner.run_sequence(_port_seq(tunnel), _port_cfg(jcfg), device="cpu")
+    _assert_poses_close(tp, jp)
+    assert [o["keyframe_inserted"] for o in to] == [o["keyframe_inserted"] for o in jo]
+    for a, b in zip(to, jo):
+        assert abs(a["map_size"] - b["map_size"]) <= MAP_SIZE_RTOL * b["map_size"], (a, b)
+        assert a["prior_source"] == b["prior_source"]
+        assert a["num_points"] == b["num_points"]
+
+
+def test_state_carried_over_from_jax(tunnel):
+    """4 scans in JAX, the state converted, 4 more in the port."""
+    jcfg = small_cfg(fusion=FusionConfig(data_integration_mode=3))
+    tcfg = _port_cfg(jcfg)
+    tseq = _port_seq(tunnel)
+    rstep = jrunner.make_replay_step(jcfg)
+    jst = jpl.init_state_from_config(jcfg, initial_pose=jnp.asarray(tunnel.gt_poses[0], jnp.float32))
+    jst = jax.tree_util.tree_map(lambda x: jnp.array(x, copy=True), jst)
+    tst = None
+    jposes, tposes, jkf, tkf, jms, tms = [], [], [], [], [], []
+    for i in range(8):
+        args = trunner.scan_inputs(tseq, i, tcfg, "cpu")
+        if i == 4:
+            tst = state_from_numpy(jax.tree_util.tree_map(np.asarray, jst), "cpu")
+        if tst is not None:
+            tst, tout = trunner.replay_step(tst, *args, cfg=tcfg)
+            tposes.append(tout.pose.numpy())
+            tkf.append(bool(tout.keyframe_inserted))
+            tms.append(int(tout.map_size))
+        jst, jout = rstep(jst, *[jnp.asarray(a.numpy()) for a in args])
+        if i >= 4:
+            jposes.append(np.asarray(jout.pose))
+            jkf.append(bool(jout.keyframe_inserted))
+            jms.append(int(jout.map_size))
+    _assert_poses_close(tposes, jposes)
+    assert tkf == jkf
+    for a, b in zip(tms, jms):
+        assert abs(a - b) <= MAP_SIZE_RTOL * b
+
+
+def test_state_conversion_is_exact():
+    """state_from_numpy copies every leaf; the map operand changes layout."""
+    jcfg = small_cfg()
+    jst = jpl.init_state(jcfg, initial_pose=jnp.eye(4))
+    tst = state_from_numpy(jax.tree_util.tree_map(np.asarray, jst), "cpu")
+    assert tst.map.nn_aug.shape == (jst.map.nn_aug.shape[1], 4)
+    np.testing.assert_array_equal(tst.map.nn_aug.numpy(), np.asarray(jst.map.nn_aug)[:4].T)
+    np.testing.assert_array_equal(tst.odom.reference.xyz.numpy(), np.asarray(jst.odom.reference.xyz))
+    np.testing.assert_array_equal(tst.fuse.odom.data.numpy(), np.asarray(jst.fuse.odom.data))
+    assert tst.stats.last_seq.dtype == torch.int32 and int(tst.stats.last_seq) == -1
+
+
+def test_unported_branches_raise():
+    from locus_tpu_torch import pipeline as tpl
+
+    base = _port_cfg(small_cfg())
+    for cfg in (
+        base.replace(filtering=dataclasses.replace(base.filtering, extract_features=True)),
+        base.replace(filtering=dataclasses.replace(base.filtering, outlier_filter=True)),
+        base.replace(filtering=dataclasses.replace(base.filtering, normals_method="knn")),
+        base.replace(mapper=dataclasses.replace(base.mapper, structure="voxel_hash")),
+        base.replace(odometry=dataclasses.replace(base.odometry, registration_method="ndt")),
+    ):
+        with pytest.raises(NotImplementedError):
+            state = tpl.init_state(cfg, device="cpu")
+            seq = make_tunnel_sequence(num_scans=1, azimuth_steps=64, seed=0)
+            trunner.replay_step(state, *trunner.scan_inputs(_port_seq(seq), 0, cfg, "cpu"), cfg=cfg)
