@@ -9,17 +9,25 @@ nothing of JAX or of `locus_tpu`.
 Phases, each printing one JSON line:
  1. device     card name and the nvidia-smi power limit
  2. build      nvcc of every kernel source, all at once
- 3. reference  the first 8 scans of the production tunnel replay with the
+ 3. reference  the first 8 scans of the production tunnel replay, and the
+               first 8 ticks of the 4-robot batched replay, with the
                kernels' plain PyTorch versions (`no_kernels()`), on the card
- 4. kernels    each kernel at the shapes the main path gives it (inputs
-               from the reference run's state), against its plain version
-               on the same inputs, timed with CUDA events beside the plain
-               version, a one-call PyTorch yardstick where one exists, and
-               the bound from this run's visited pairs
+ 4. kernels    each kernel at the shapes the main paths give it (inputs
+               from the reference runs' states; B5 on B1's inputs, B6 on
+               B4's), against its plain version on the same inputs, timed
+               with CUDA events beside the plain version, a one-call
+               PyTorch yardstick where one exists, and the bound from this
+               run's visited pairs
  5. pipeline   the 48-scan production replay through runner.run_sequence
                with launch counts reset just before and read just after;
                scans/s over the last 32 scans and ATE against ground truth
  6. ab         the pipeline's first 8 poses against the reference run's
+ 7. batched    4 robots, 24 scans each, through runner.make_batched_replay
+               (one batched step per tick) with launch counts reset just
+               before and read just after; every robot also through
+               runner.make_scan_replay; ticks/s and robot-scans/s over the
+               last 16 ticks, per-robot ATE and difference from the single
+               replay, launches per tick
 Then the `kernels` summary line, the nvidia-smi line, and the final
 `{"ok": true, ...}` line. The full record also goes to
 chiprun_out/chip_smoke.json.
@@ -39,8 +47,14 @@ PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 
 SCANS, REF_SCANS, RATE_WINDOW = 48, 8, 32
+ROBOTS, ROBOT_SCANS, TICK_WINDOW = 4, 24, 16
+ROBOT_STEPS = (0.30, 0.35, 0.40, 0.45)
 ATE_LIMIT_M = 0.05
 AB_LIMIT_M = 1e-3
+BATCHED_LIMIT_M = 1e-3  # each robot of the batched replay against its single replay
+# the kernels each replay launches: B1, B2 (scan, map); B4, B3 (scan, map)
+SINGLE_PATH = ("moments_visits", "nn_visits_scan", "nn_visits_map")
+BATCHED_PATH = ("moments_visits_batched", "nn_visits_batched_scan", "nn_visits_batched_map")
 D2_TOL = 1e-5       # kernel vs plain, squared distance of the winner [m^2]
 MOMENT_RTOL = 1e-6  # kernel vs plain, raw moment sums (float64 sums: exact)
 
@@ -85,35 +99,41 @@ def bound_ms(ops, nbytes):
 
 
 def check_nn(torch, tnn, name, query, t_aug, target, c_min, c_max, radius, bt, library):
-    """Kernel B2 against its plain version on one main-path call."""
+    """Kernel B2 (one member) or B3 (a leading batch) against its plain
+    version on one main-path call."""
+    from locus_tpu_torch.core.cloud import take_rows
+
+    batched = query.dim() == 3
+    run, counts = (tnn.nn_visits_batched, tnn.batched_launches) if batched else (tnn.nn_visits, tnn.launches)
     tmin, tmax = tnn.tile_boxes(query)
     cnt, ids = tnn.visit_lists(tmin, tmax, c_min, c_max, radius * radius)
     q = tnn.pack_query(query)
-    before = dict(tnn.launches)
-    ks, ki = tnn.nn_visits(cnt, ids, q, t_aug, bt)
+    before = dict(counts)
+    ks, ki = run(cnt, ids, q, t_aug, bt)
     torch.cuda.synchronize()
     ps, pi = tnn.nn_visits_plain(cnt, ids, q, t_aug, bt)
-    tnn.launches.update(before)  # comparison launches are not main-path launches
-    n, m = query.shape[0], target.shape[0]
-    valid = torch.all(query.abs() < 1e7, dim=1)
-    ki64 = ki[:n].long().clamp(0, m - 1)
-    pi64 = pi[:n].long().clamp(0, m - 1)
-    kd2 = ((query - target[ki64]) ** 2).sum(1)
-    pd2 = ((query - target[pi64]) ** 2).sum(1)
+    counts.update(before)  # comparison launches are not main-path launches
+    n, m = query.shape[-2], target.shape[-2]
+    valid = torch.all(query.abs() < 1e7, dim=-1)
+    ki64 = ki[..., :n].long().clamp(0, m - 1)
+    pi64 = pi[..., :n].long().clamp(0, m - 1)
+    kd2 = ((query - take_rows(target, ki64)) ** 2).sum(-1)
+    pd2 = ((query - take_rows(target, pi64)) ** 2).sum(-1)
     inside = valid & (pd2 <= radius * radius)
     err = float((kd2 - pd2)[inside].abs().max()) if bool(inside.any()) else 0.0
     idx_diff = int((inside & (ki64 != pi64)).sum())
     ok = err <= D2_TOL
     visited = int(cnt.sum()) * tnn.BQ * bt
-    ms = device_time_ms(torch, lambda: tnn.nn_visits(cnt, ids, q, t_aug, bt))
-    tnn.launches.update(before)
+    ms = device_time_ms(torch, lambda: run(cnt, ids, q, t_aug, bt))
+    counts.update(before)
     plain_ms = device_time_ms(torch, lambda: tnn.nn_visits_plain(cnt, ids, q, t_aug, bt), reps=5)
     lib_ms = device_time_ms(torch, library, reps=5) if library is not None else None
-    nbytes = q.numel() * 4 + t_aug.numel() * 4 + cnt.numel() * 4 + ids.numel() * 4 + q.shape[0] * 8
+    nbytes = (q.numel() + t_aug.numel() + cnt.numel() + ids.numel()) * 4 + q.shape[:-1].numel() * 8
     b, by = bound_ms(visited * 7, nbytes)
     return ok, {
         "name": name, "route": "cuda", "source": "locus_tpu_torch/csrc/nn.cu",
-        "replaces": "locus_tpu/ops/pallas/nn.py:208",
+        "replaces": "locus_tpu/ops/pallas/nn.py:256" if batched else "locus_tpu/ops/pallas/nn.py:208",
+        "batch": query.shape[0] if batched else 1,
         "queries": n, "targets": m, "bt": bt, "radius": float(radius),
         "visited_pairs": visited, "max_abs_err": err, "index_mismatches_within_tol": idx_diff,
         "tolerance": f"winner d2 within {D2_TOL} m^2",
@@ -122,39 +142,151 @@ def check_nn(torch, tnn, name, query, t_aug, target, c_min, c_max, radius, bt, l
     }
 
 
+def compare_moments(torch, k, p, q):
+    """(ok, max abs error, count mismatches) of kernel sums k against the
+    plain version's p over the valid query rows of q."""
+    valid = torch.all(q[..., :3].abs() < 1e7, dim=-1) & (q[..., 3] > 0)
+    kv, pv = k[valid].double(), p[valid].double()
+    rel = (kv - pv).abs() / pv.abs().clamp(min=1e-30)
+    count_mismatches = int((kv[:, 9] != pv[:, 9]).sum())
+    ok = bool((rel <= MOMENT_RTOL).all()) and count_mismatches == 0
+    return ok, float((kv - pv).abs().max()), count_mismatches
+
+
+MOMENT_SOURCES = {
+    "moments_visits": "locus_tpu/ops/pallas/moments.py:191",
+    "moments_visits_batched": "locus_tpu/ops/pallas/moments.py:222",
+    "moments_dense": "locus_tpu/ops/pallas/moments.py:51",
+    "moments_dense_batched": "locus_tpu/ops/pallas/moments.py:81",
+}
+
+
 def check_moments(torch, tmom, query, radius):
-    """Kernel B1 against its plain version on one main-path call."""
-    r2 = (radius * radius).reshape(1).to(torch.float32)
+    """Kernel B1 (one member) or B4 (a leading batch, one radius each)
+    against its plain version on one main-path call, then the dense kernel
+    B5 (B6) against its plain version on the same inputs, with the counts
+    in which dense and pruned differ (expected only at the f32 radius)."""
+    batched = query.dim() == 3
+    r2 = (radius * radius).reshape(-1).to(torch.float32)
     cnt, ids = tmom.prune(query, query, r2)
     q, t = tmom.pack_operands(query, query)
-    before = tmom.launches
-    k = tmom.moments_visits(cnt, ids, r2, q, t)
-    torch.cuda.synchronize()
-    p = tmom.moments_visits_plain(cnt, ids, r2, q, t)
-    tmom.launches = before
-    valid = torch.all(q[:, :3].abs() < 1e7, dim=1) & (q[:, 3] > 0)
-    kv, pv = k[valid].double(), p[valid].double()
-    rel = ((kv - pv).abs() / pv.abs().clamp(min=1e-30))
-    err = float((kv - pv).abs().max())
-    count_mismatches = int((k[valid][:, 9] != p[valid][:, 9]).sum())
-    ok = bool((rel <= MOMENT_RTOL).all()) and count_mismatches == 0
-    visited = int(cnt.sum()) * tmom.BQ * tmom.MBT
-    inside = int(p[valid][:, 9].sum())
-    ms = device_time_ms(torch, lambda: tmom.moments_visits(cnt, ids, r2, q, t))
-    tmom.launches = before
-    plain_ms = device_time_ms(torch, lambda: tmom.moments_visits_plain(cnt, ids, r2, q, t), reps=5)
-    nbytes = (q.numel() + t.numel() + cnt.numel() + ids.numel() + 1) * 4 + q.shape[0] * tmom.NM * 4
-    # 8 ops per visited pair (3 mul, 4 add, compare) + 16 per pair inside
-    # the radius (6 products, 10 sums)
-    b, by = bound_ms(visited * 8 + inside * 16, nbytes)
-    return ok, {
-        "name": "moments_visits", "route": "cuda", "source": "locus_tpu_torch/csrc/moments.cu",
-        "replaces": "locus_tpu/ops/pallas/moments.py:191",
-        "queries": query.shape[0], "targets": query.shape[0], "bt": tmom.MBT,
-        "radius": float(radius), "visited_pairs": visited, "pairs_in_radius": inside,
-        "max_abs_err": err, "count_mismatches": count_mismatches,
-        "tolerance": f"sums rtol {MOMENT_RTOL}, counts equal",
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": None,
+    qd, td = tmom.pack_operands(query, query, bt=tmom.DENSE_BT)
+    names = ("moments_visits_batched", "moments_dense_batched") if batched else ("moments_visits", "moments_dense")
+    pruned = tmom.moments_visits_batched if batched else tmom.moments_visits
+    dense = tmom.moments_dense_batched if batched else tmom.moments_dense
+    counters = ("batched_launches", "dense_batched_launches") if batched else ("launches", "dense_launches")
+    before = {c: getattr(tmom, c) for c in counters}
+    dense_visits = tmom.dense_visits(qd, td)
+    runs = (
+        (names[0], lambda: pruned(cnt, ids, r2, q, t), lambda: tmom.moments_visits_plain(cnt, ids, r2, q, t),
+         q, t, int(cnt.sum()) * tmom.BQ * tmom.MBT),
+        (names[1], lambda: dense(r2, qd, td),
+         lambda: tmom.moments_visits_plain(*dense_visits, r2, qd, td, tmom.DENSE_BT),
+         qd, td, qd.shape[:-1].numel() * td.shape[-2]),
+    )
+    oks, results, sums = [], [], []
+    for name, kernel, plain, qq, tt, visited in runs:
+        k = kernel()
+        torch.cuda.synchronize()
+        p = plain()
+        ok, err, count_mismatches = compare_moments(torch, k, p, qq)
+        sums.append(k[..., : query.shape[-2], :])
+        inside = int(p[..., 9].sum())
+        ms = device_time_ms(torch, kernel)
+        plain_ms = device_time_ms(torch, plain, reps=5)
+        nbytes = (qq.numel() + tt.numel() + r2.numel()) * 4 + qq.shape[:-1].numel() * tmom.NM * 4
+        if name.startswith("moments_visits"):
+            nbytes += (cnt.numel() + ids.numel()) * 4
+        # 8 ops per visited pair (3 mul, 4 add, compare) + 16 per pair inside
+        # the radius (6 products, 10 sums)
+        b, by = bound_ms(visited * 8 + inside * 16, nbytes)
+        oks.append(ok)
+        results.append({
+            "name": name, "route": "cuda", "source": "locus_tpu_torch/csrc/moments.cu",
+            "replaces": MOMENT_SOURCES[name], "batch": query.shape[0] if batched else 1,
+            "queries": query.shape[-2], "targets": query.shape[-2],
+            "bt": tmom.MBT if name.startswith("moments_visits") else tmom.DENSE_BT,
+            "radius": radius.reshape(-1).tolist(), "visited_pairs": visited, "pairs_in_radius": inside,
+            "max_abs_err": err, "count_mismatches": count_mismatches,
+            "tolerance": f"sums rtol {MOMENT_RTOL}, counts equal",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": None,
+        })
+    for c, v in before.items():
+        setattr(tmom, c, v)  # comparison launches are not main-path launches
+    # dense (B5/B6) against pruned (B1/B4) counts over the valid queries:
+    # they may differ only where a neighbour lies at the radius to f32
+    # rounding (the float64 distance within 1e-5 r of r)
+    valid = torch.all(query.abs() < 1e7, dim=-1)
+    differ = valid & (sums[0][..., 9] != sums[1][..., 9])
+    X = query.double()
+    r = radius.double().reshape(radius.shape + (1, 1))
+    d = torch.sqrt(((X[..., :, None, :] - X[..., None, :, :]) ** 2).sum(-1))
+    at_radius = (((d - r).abs() <= 1e-5 * r) & valid[..., None, :]).any(-1)
+    results[1]["dense_vs_pruned_count_mismatches"] = int(differ.sum())
+    results[1]["dense_vs_pruned_mismatches_off_the_radius"] = int((differ & ~at_radius).sum())
+    return all(oks), results
+
+
+def scan_for_checks(torch, cfg, seqs, i, leaf, dev):
+    """Scan i of each sequence cropped and voxelised at `leaf`, as the step
+    would feed the kernels: one cloud, or a batch of them."""
+    from locus_tpu_torch import runner
+    from locus_tpu_torch.core.cloud import PAD_COORD, PointCloud
+    from locus_tpu_torch.ops import filters, voxel
+
+    args = [runner.scan_inputs(s, i, cfg, dev) for s in seqs]
+    xyz = torch.stack([a[0] for a in args]).squeeze(0)
+    mask = torch.stack([a[1] for a in args]).squeeze(0)
+    raw = PointCloud(torch.where(mask[..., None], xyz, PAD_COORD), torch.zeros_like(xyz),
+                     torch.zeros(mask.shape, device=dev), mask)
+    pc = filters.crop_box(raw, cfg.filtering.box_min, cfg.filtering.box_max)
+    return voxel.voxel_downsample(pc, leaf, capacity=cfg.scan_capacity, with_attributes=False)
+
+
+def kernel_checks(torch, tnn, tmom, cfg, pc, state, suffix):
+    """B1/B5 and B2 (scan, map) on one robot's inputs, or B4/B6 and B3 on a
+    batch's, all from the reference run's state."""
+    from locus_tpu_torch.core.cloud import PAD_COORD
+
+    ok_m, results = check_moments(torch, tmom, pc.xyz, cfg.filtering.normals_radius_scale * state.voxel_leaf)
+    oks = [ok_m]
+    scan_ref = state.odom.reference
+    t_aug = tnn.build_nn_target(scan_ref.xyz, bt=tnn.SCAN_BT)
+    c_min, c_max = tnn.chunk_boxes(scan_ref.xyz, scan_ref.mask, t_aug.shape[-2], bt=tnn.SCAN_BT)
+    q_scan = torch.where(pc.mask[..., None], pc.xyz, PAD_COORD)
+    ok, res = check_nn(
+        torch, tnn, f"nn_visits{suffix}_scan", q_scan, t_aug, scan_ref.xyz, c_min, c_max,
+        cfg.odometry.corr_dist, tnn.SCAN_BT,
+        lambda: torch.cdist(q_scan, scan_ref.xyz).min(-1),
+    )
+    oks.append(ok), results.append(res)
+    mp = state.map
+    world = pc.transform(state.loc.integrated).xyz
+    ok, res = check_nn(
+        torch, tnn, f"nn_visits{suffix}_map", world, mp.nn_aug, mp.cloud.xyz, mp.chunk_min, mp.chunk_max,
+        cfg.mapper.ann_search_radius, tnn.BT,
+        lambda: torch.cdist(world, mp.cloud.xyz).min(-1),
+    )
+    oks.append(ok), results.append(res)
+    return all(oks), results
+
+
+def reset_launches(tnn, tmom):
+    for counts in (tnn.launches, tnn.batched_launches):
+        counts.update({bt: 0 for bt in counts})
+    tmom.launches = tmom.batched_launches = tmom.dense_launches = tmom.dense_batched_launches = 0
+
+
+def read_launches(tnn, tmom):
+    return {
+        "moments_visits": tmom.launches,
+        "nn_visits_scan": tnn.launches[tnn.SCAN_BT],
+        "nn_visits_map": tnn.launches[tnn.BT],
+        "nn_visits_batched_scan": tnn.batched_launches[tnn.SCAN_BT],
+        "nn_visits_batched_map": tnn.batched_launches[tnn.BT],
+        "moments_visits_batched": tmom.batched_launches,
+        "moments_dense": tmom.dense_launches,
+        "moments_dense_batched": tmom.dense_batched_launches,
     }
 
 
@@ -182,11 +314,10 @@ def main() -> int:
 
     import numpy as np
 
-    from locus_tpu_torch import config as cfg_mod, runner
-    from locus_tpu_torch.core.cloud import PAD_COORD, PointCloud
+    from locus_tpu_torch import config as cfg_mod, pipeline, runner
     from locus_tpu_torch.io.dataset import make_tunnel_sequence
-    from locus_tpu_torch.metrics import ate_rmse
-    from locus_tpu_torch.ops import dispatch, filters, voxel
+    from locus_tpu_torch.metrics import RateReport, ate_rmse
+    from locus_tpu_torch.ops import dispatch
     from locus_tpu_torch.ops.kernels import build, moments as tmom, nn as tnn
 
     record = {}
@@ -216,6 +347,10 @@ def main() -> int:
         cfg = production_config(cfg_mod)
         t0 = time.perf_counter()
         seq = make_tunnel_sequence(num_scans=SCANS, azimuth_steps=1800, step=0.35, seed=0)
+        robot_seqs = [
+            make_tunnel_sequence(num_scans=ROBOT_SCANS, azimuth_steps=1800, step=st, seed=b)
+            for b, st in enumerate(ROBOT_STEPS)
+        ]
         data_s = time.perf_counter() - t0
 
         # 3. reference: the plain versions on the card
@@ -224,53 +359,43 @@ def main() -> int:
             ref_poses, _, _, ref_state = runner.run_sequence(
                 seq, cfg, max_scans=REF_SCANS, return_state=True, device=dev
             )
-        record["reference"] = {"phase": "reference", "scans": REF_SCANS, "seconds": time.perf_counter() - t0, "data_seconds": data_s}
+        single_s = time.perf_counter() - t0
+        robot_packed = [runner.pack_sequence(s, cfg, device=dev) for s in robot_seqs]
+        first_ticks = runner.stack_packed([{k: v[:REF_SCANS] for k, v in p.items()} for p in robot_packed])
+        init_poses = np.stack([s.gt_poses[0] for s in robot_seqs])
+        t0 = time.perf_counter()
+        ref_states, _ = runner.make_batched_replay(cfg, use_pallas=False)(
+            pipeline.init_states(cfg, init_poses, device=dev), first_ticks
+        )
+        record["reference"] = {
+            "phase": "reference", "scans": REF_SCANS, "seconds": single_s, "data_seconds": data_s,
+            "batched_ticks": REF_SCANS, "batched_seconds": time.perf_counter() - t0,
+        }
         emit(record["reference"])
 
-        # 4. kernels at the main path's shapes, inputs from the reference state
-        args = runner.scan_inputs(seq, REF_SCANS, cfg, dev)
-        raw = PointCloud(torch.where(args[1][:, None], args[0], PAD_COORD), torch.zeros_like(args[0]),
-                         torch.zeros(args[0].shape[0], device=dev), args[1])
-        leaf = ref_state.voxel_leaf
-        pc = filters.crop_box(raw, cfg.filtering.box_min, cfg.filtering.box_max)
-        pc = voxel.voxel_downsample(pc, leaf, capacity=cfg.scan_capacity, with_attributes=False)
-        scan_ref = ref_state.odom.reference
-        results, oks = [], []
-        ok, res = check_moments(torch, tmom, pc.xyz, cfg.filtering.normals_radius_scale * leaf)
-        oks.append(ok), results.append(res)
-        t_aug = tnn.build_nn_target(scan_ref.xyz, bt=tnn.SCAN_BT)
-        c_min, c_max = tnn.chunk_boxes(scan_ref.xyz, scan_ref.mask, t_aug.shape[0], bt=tnn.SCAN_BT)
-        q_scan = torch.where(pc.mask[:, None], pc.xyz, PAD_COORD)
-        ok, res = check_nn(
-            torch, tnn, "nn_visits_scan", q_scan, t_aug, scan_ref.xyz, c_min, c_max,
-            cfg.odometry.corr_dist, tnn.SCAN_BT,
-            lambda: torch.cdist(q_scan, scan_ref.xyz).min(1),
-        )
-        oks.append(ok), results.append(res)
-        mp = ref_state.map
-        world = pc.transform(ref_state.loc.integrated).xyz
-        ok, res = check_nn(
-            torch, tnn, "nn_visits_map", world, mp.nn_aug, mp.cloud.xyz, mp.chunk_min, mp.chunk_max,
-            cfg.mapper.ann_search_radius, tnn.BT,
-            lambda: torch.cdist(world, mp.cloud.xyz).min(1),
-        )
-        oks.append(ok), results.append(res)
-        record["kernels"] = {"phase": "kernels", "checks": results, "map_points": int(mp.cloud.mask.sum())}
+        # 4. kernels at the main paths' shapes, inputs from the reference states
+        pc = scan_for_checks(torch, cfg, [seq], REF_SCANS, ref_state.voxel_leaf, dev)
+        ok_single, results = kernel_checks(torch, tnn, tmom, cfg, pc, ref_state, "")
+        pcb = scan_for_checks(torch, cfg, robot_seqs, REF_SCANS, ref_states.voxel_leaf, dev)
+        ok_batched, batched_results = kernel_checks(torch, tnn, tmom, cfg, pcb, ref_states, "_batched")
+        results += batched_results
+        record["kernels"] = {
+            "phase": "kernels", "checks": results, "map_points": int(ref_state.map.cloud.mask.sum()),
+            "batched_map_points": ref_states.map.cloud.mask.sum(-1).tolist(),
+            "batched_leaves": ref_states.voxel_leaf.tolist(),
+        }
         emit(record["kernels"])
-        if not all(oks):
+        if not (ok_single and ok_batched):
             raise RuntimeError("a kernel disagrees with its plain version")
 
         # 5. pipeline through the kernels, launch counts of this run only
-        tnn.launches.update({bt: 0 for bt in tnn.launches})
-        tmom.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(tnn, tmom)
         t0 = time.perf_counter()
         poses, outputs, report = runner.run_sequence(seq, cfg, device=dev)
         wall = time.perf_counter() - t0
-        launches = {
-            "moments_visits": tmom.launches,
-            "nn_visits_scan": tnn.launches[tnn.SCAN_BT],
-            "nn_visits_map": tnn.launches[tnn.BT],
-        }
+        launches = read_launches(tnn, tmom)
         dur = np.asarray(report.durations)
         gt = seq.gt_poses[: poses.shape[0]]
         ate = ate_rmse(poses[:, :3, 3], gt[:, :3, 3], align=False)
@@ -286,7 +411,7 @@ def main() -> int:
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         }
         emit(record["pipeline"])
-        if min(launches.values()) <= 0:
+        if min(launches[k] for k in SINGLE_PATH) <= 0:
             raise RuntimeError(f"the pipeline did not launch every kernel: {launches}")
         if not np.isfinite(poses).all() or ate > ATE_LIMIT_M:
             raise RuntimeError(f"ATE {ate} m exceeds {ATE_LIMIT_M} m")
@@ -300,12 +425,58 @@ def main() -> int:
         emit(record["ab"])
         if ab.max() > AB_LIMIT_M:
             raise RuntimeError(f"A/B: kernels and plain versions differ by {ab.max()} m")
+
+        # 7. batched: 4 robots through make_batched_replay, each also alone
+        single_replay = runner.make_scan_replay(cfg)
+        single_poses = []
+        for s, p in zip(robot_seqs, robot_packed):
+            st = pipeline.init_state(cfg, initial_pose=torch.as_tensor(s.gt_poses[0], dtype=torch.float32), device=dev)
+            single_poses.append(single_replay(st, p)[1][0].cpu().numpy().astype(np.float64))
+        packed = runner.stack_packed(robot_packed)
+        states = pipeline.init_states(cfg, init_poses, device=dev)
+        ticks = RateReport()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(tnn, tmom)
+        t0 = time.perf_counter()
+        states, (bposes, _, bsizes) = runner.make_batched_replay(cfg)(states, packed, report=ticks)
+        wall = time.perf_counter() - t0
+        blaunches = read_launches(tnn, tmom)
+        bposes = bposes.cpu().numpy().astype(np.float64)          # (T, B, 4, 4)
+        dur = np.asarray(ticks.durations)
+        ates = [ate_rmse(bposes[:, b, :3, 3], s.gt_poses[:ROBOT_SCANS, :3, 3], align=False)
+                for b, s in enumerate(robot_seqs)]
+        vs_single = [float(np.abs(bposes[:, b, :3, 3] - single_poses[b][:, :3, 3]).max()) for b in range(ROBOTS)]
+        tick_rate = TICK_WINDOW / float(dur[-TICK_WINDOW:].sum())
+        record["batched"] = {
+            "phase": "batched", "robots": ROBOTS, "ticks": int(dur.size), "steps": list(ROBOT_STEPS),
+            "ticks_per_s_last16": tick_rate, "robot_scans_per_s_last16": ROBOTS * tick_rate,
+            "ms_per_tick_p50_last16": float(np.median(dur[-TICK_WINDOW:]) * 1e3),
+            "ms_per_tick_max_last16": float(dur[-TICK_WINDOW:].max() * 1e3),
+            "first_tick_s": float(dur[0]), "wall_s": wall,
+            "ate_m": ates, "max_translation_vs_single_m": vs_single,
+            "launches": blaunches, "launches_per_tick": {k: v / dur.size for k, v in blaunches.items()},
+            "final_map_sizes": bsizes[-1].tolist(), "final_leaves": states.voxel_leaf.tolist(),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        }
+        emit(record["batched"])
+        if not np.isfinite(bposes).all() or max(ates) > ATE_LIMIT_M:
+            raise RuntimeError(f"batched ATE {ates} m exceeds {ATE_LIMIT_M} m")
+        if max(vs_single) > BATCHED_LIMIT_M:
+            raise RuntimeError(f"batched robots differ from their single replays by {vs_single} m")
+        per_tick = (blaunches["moments_visits_batched"], blaunches["nn_visits_batched_map"])
+        if per_tick != (dur.size, dur.size) or blaunches["nn_visits_batched_scan"] < dur.size:
+            raise RuntimeError(f"batched launches per tick are not B4 = B3-at-BT = 1: {blaunches}")
+        if any(blaunches[k] for k in SINGLE_PATH):
+            raise RuntimeError(f"the batched replay launched a single-member kernel: {blaunches}")
     except Exception:
         traceback.print_exc()
         emit({"phase": "failed", "completed": list(record)})
         return 1
 
-    counts = record["pipeline"]["launches"]
+    # B1/B2 from the single replay, B3/B4 from the batched one; B5/B6 lie
+    # on no path and launch in neither
+    counts = record["pipeline"]["launches"] | {k: record["batched"]["launches"][k] for k in BATCHED_PATH}
     summary = [
         {k: v for k, v in r.items() if k in (
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",

@@ -6,7 +6,9 @@
 `state_from_numpy` turns a JAX `LocusState` whose leaves were converted to
 numpy arrays (its tree mapped through `np.asarray`) into the port's
 LocusState on a device, so a replay can run k scans in JAX and continue in
-the port. Neither function imports JAX: they read plain attributes.
+the port. A stacked JAX state (the batched replay's: every leaf with a
+leading B) becomes the port's batched state the same way. Neither
+function imports JAX: they read plain attributes.
 
 Layouts that differ: the map's cached 1-NN operand is (8, m_pad) in the
 JAX package (rows -2x, -2y, -2z, |t|^2, then zeros) and (m_pad, 4) here.
@@ -66,7 +68,7 @@ def state_from_numpy(tree, device) -> pipeline.LocusState:
     """The port's LocusState from a JAX LocusState with numpy leaves."""
     dev = torch.device(device)
     jmap = tree.map
-    nn_aug = np.asarray(jmap.nn_aug)[:4].T                       # (m_pad, 4)
+    nn_aug = np.swapaxes(np.asarray(jmap.nn_aug)[..., :4, :], -1, -2)   # (..., m_pad, 4)
     map_state = _tuple(
         MapState, jmap, dev,
         cloud=lambda c: _cloud(c, dev),

@@ -3,7 +3,9 @@
 
 A struct of tensors with a static padding budget and a validity mask.
 Invalid lanes carry a far sentinel coordinate (PAD_COORD) so distance
-tests push them out of range without extra branching.
+tests push them out of range without extra branching. A cloud may carry
+one leading batch dimension (one cloud per robot of the batched replay);
+the methods work per member.
 """
 from __future__ import annotations
 
@@ -16,9 +18,17 @@ import torch
 PAD_COORD = 1.0e8
 
 
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows `idx` (..., K) of x (..., M) or (..., M, C), per batch member:
+    x[idx] on the single path."""
+    if x.dim() == idx.dim():
+        return torch.take_along_dim(x, idx, dim=-1)
+    return torch.take_along_dim(x, idx[..., None], dim=-2)
+
+
 class PointCloud(NamedTuple):
-    """xyz (N,3) f32 (PAD_COORD on invalid lanes), normals (N,3) f32 (zero
-    on invalid lanes), intensity (N,) f32, mask (N,) bool."""
+    """xyz (...,N,3) f32 (PAD_COORD on invalid lanes), normals (...,N,3) f32
+    (zero on invalid lanes), intensity (...,N) f32, mask (...,N) bool."""
 
     xyz: torch.Tensor
     normals: torch.Tensor
@@ -82,30 +92,30 @@ class PointCloud(NamedTuple):
     # -- basic ops ----------------------------------------------------------
     @property
     def capacity(self) -> int:
-        return self.xyz.shape[0]
+        return self.xyz.shape[-2]
 
     def count(self) -> torch.Tensor:
-        """Number of valid points (0-d int32 tensor on the cloud's device)."""
-        return torch.sum(self.mask, dtype=torch.int32)
+        """Number of valid points (int32 tensor (...) on the cloud's device)."""
+        return torch.sum(self.mask, dim=-1, dtype=torch.int32)
 
     def with_mask(self, new_mask: torch.Tensor) -> "PointCloud":
         """Apply an additional mask; invalidated lanes get the sentinel."""
         m = self.mask & new_mask
         return PointCloud(
-            torch.where(m[:, None], self.xyz, PAD_COORD),
-            torch.where(m[:, None], self.normals, 0.0),
+            torch.where(m[..., None], self.xyz, PAD_COORD),
+            torch.where(m[..., None], self.normals, 0.0),
             torch.where(m, self.intensity, 0.0),
             m,
         )
 
     def transform(self, T: torch.Tensor) -> "PointCloud":
-        """Rigidly transform points and rotate normals by a (4,4) transform."""
+        """Rigidly transform points and rotate normals by a (...,4,4) transform."""
         from locus_tpu_torch.geometry import se3
 
         xyz = se3.transform_points(T, self.xyz)
         normals = se3.rotate_vectors(T, self.normals)
-        xyz = torch.where(self.mask[:, None], xyz, PAD_COORD)
-        normals = torch.where(self.mask[:, None], normals, 0.0)
+        xyz = torch.where(self.mask[..., None], xyz, PAD_COORD)
+        normals = torch.where(self.mask[..., None], normals, 0.0)
         return PointCloud(xyz, normals, self.intensity, self.mask)
 
     def compact(self, capacity: Optional[int] = None) -> "PointCloud":
@@ -114,22 +124,21 @@ class PointCloud(NamedTuple):
         cap = capacity if capacity is not None else self.capacity
         n = self.capacity
         m = self.mask
-        nv = torch.cumsum(m.to(torch.int64), 0)
-        pos = torch.where(m, nv - 1, nv[-1] + torch.cumsum((~m).to(torch.int64), 0) - 1)
-        # pos is a permutation of 0..n-1, so the scatter has no duplicates
-        take = torch.empty((n,), dtype=torch.int64, device=m.device)
-        take.scatter_(0, pos, torch.arange(n, device=m.device))
-        take = take[:cap]
-        return PointCloud(
-            self.xyz[take], self.normals[take], self.intensity[take], self.mask[take]
-        )
+        nv = torch.cumsum(m.to(torch.int64), -1)
+        pos = torch.where(m, nv - 1, nv[..., -1:] + torch.cumsum((~m).to(torch.int64), -1) - 1)
+        # pos is a permutation of 0..n-1 per member, so the scatter has no
+        # duplicates
+        take = torch.empty(m.shape, dtype=torch.int64, device=m.device)
+        take.scatter_(-1, pos, torch.arange(n, device=m.device).expand(m.shape))
+        take = take[..., :cap]
+        return PointCloud(*(take_rows(a, take) for a in self))
 
     def centroid(self) -> torch.Tensor:
-        """(3,) mean of valid points."""
+        """(...,3) mean of valid points."""
         w = self.mask.to(torch.float32)
-        denom = torch.clamp(torch.sum(w), min=1.0)
-        safe_xyz = torch.where(self.mask[:, None], self.xyz, 0.0)
-        return torch.sum(safe_xyz * w[:, None], dim=0) / denom
+        denom = torch.clamp(torch.sum(w, dim=-1), min=1.0)
+        safe_xyz = torch.where(self.mask[..., None], self.xyz, 0.0)
+        return torch.sum(safe_xyz * w[..., None], dim=-2) / denom[..., None]
 
 
 def concatenate(clouds, capacity: Optional[int] = None) -> PointCloud:

@@ -5,16 +5,44 @@ Transforms are (...,4,4) homogeneous float32 matrices; functions batch over
 leading dimensions. Rotations use the ZYX Euler convention of the
 reference's `applyState`, and the se(3) exp/log maps serve the
 Gauss-Newton solver.
+
+Matrix products and norms are written out as elementwise sums of
+products in a fixed order (`matmul`, `matvec`, `_dot`) instead of
+`torch.matmul`/`einsum`/`linalg.norm`: a batched product or reduction may
+sum in another order than a single one, and the batched replay must give
+each member the bits of its single replay.
 """
 from __future__ import annotations
 
 import torch
+
+from locus_tpu_torch.utils.linalg import sum_last
 
 _EPS = 1e-9
 
 
 def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.eye(n, dtype=like.dtype, device=like.device)
+
+
+def matmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """(...,n,k) @ (...,k,m), summed over k from left to right."""
+    return sum_last(A[..., :, None, :] * B.transpose(-1, -2)[..., None, :, :])
+
+
+def matvec(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(...,n,k) @ (...,k), summed over k from left to right."""
+    return sum_last(A * v[..., None, :])
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(...,k) . (...,k) -> (...), summed from left to right."""
+    return sum_last(a * b)
+
+
+def norm(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm over the last axis."""
+    return torch.sqrt(_dot(v, v))
 
 
 # ---------------------------------------------------------------------------
@@ -45,22 +73,22 @@ def translation(T: torch.Tensor) -> torch.Tensor:
 
 def inverse(T: torch.Tensor) -> torch.Tensor:
     Rt = rotation(T).transpose(-1, -2)
-    return make_transform(Rt, -torch.einsum("...ij,...j->...i", Rt, translation(T)))
+    return make_transform(Rt, -matvec(Rt, translation(T)))
 
 
 def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """A then-applied-after B: returns A @ B."""
-    return A @ B
+    return matmul(A, B)
 
 
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply (...,4,4) transform to (...,N,3) points."""
-    return torch.einsum("...ij,...nj->...ni", rotation(T), pts) + translation(T)[..., None, :]
+    return rotate_vectors(T, pts) + translation(T)[..., None, :]
 
 
 def rotate_vectors(T: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
     """Apply only the rotation of (...,4,4) to (...,N,3) vectors (normals)."""
-    return torch.einsum("...ij,...nj->...ni", rotation(T), vecs)
+    return sum_last(vecs[..., :, None, :] * rotation(T)[..., None, :, :])
 
 
 # ---------------------------------------------------------------------------
@@ -94,10 +122,10 @@ def _rodrigues_coeffs(theta2: torch.Tensor):
 
 def so3_exp(w: torch.Tensor) -> torch.Tensor:
     """Rodrigues: (...,3) axis-angle -> (...,3,3) rotation. Safe at 0."""
-    theta2 = torch.sum(w * w, dim=-1)
+    theta2 = _dot(w, w)
     a, b, _ = _rodrigues_coeffs(theta2)
     W = skew(w)
-    W2 = W @ W
+    W2 = matmul(W, W)
     eye = _eye(3, w).expand(W.shape)
     return eye + a[..., None, None] * W + b[..., None, None] * W2
 
@@ -150,30 +178,30 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     """(...,6) twist [v, w] -> (...,4,4). v translational, w rotational."""
     v = xi[..., :3]
     w = xi[..., 3:]
-    theta2 = torch.sum(w * w, dim=-1)
+    theta2 = _dot(w, w)
     a, b, small = _rodrigues_coeffs(theta2)
     c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (1.0 - a) / (theta2 + _EPS))
     W = skew(w)
-    W2 = W @ W
+    W2 = matmul(W, W)
     eye = _eye(3, xi).expand(W.shape)
     R = eye + a[..., None, None] * W + b[..., None, None] * W2
     V = eye + b[..., None, None] * W + c[..., None, None] * W2
-    t = torch.einsum("...ij,...j->...i", V, v)
+    t = matvec(V, v)
     return make_transform(R, t)
 
 
 def se3_log(T: torch.Tensor) -> torch.Tensor:
     """(...,4,4) -> (...,6) twist [v, w]."""
     w = so3_log(rotation(T))
-    theta2 = torch.sum(w * w, dim=-1)
+    theta2 = _dot(w, w)
     a, b, small = _rodrigues_coeffs(theta2)
     W = skew(w)
-    W2 = W @ W
+    W2 = matmul(W, W)
     eye = _eye(3, T).expand(W.shape)
     # V^{-1} = I - W/2 + (1/theta2)(1 - a/(2b)) W^2
     coef = torch.where(small, torch.full_like(a, 1.0 / 12.0), (1.0 - a / (2.0 * b + _EPS)) / (theta2 + _EPS))
     Vinv = eye - 0.5 * W + coef[..., None, None] * W2
-    v = torch.einsum("...ij,...j->...i", Vinv, translation(T))
+    v = matvec(Vinv, translation(T))
     return torch.cat([v, w], dim=-1)
 
 
@@ -182,7 +210,7 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _unit(q: torch.Tensor) -> torch.Tensor:
-    return q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=_EPS)
+    return q / torch.clamp(norm(q)[..., None], min=_EPS)
 
 
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
@@ -245,7 +273,7 @@ def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
 
 def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, alpha) -> torch.Tensor:
     """Spherical interpolation between (...,4) quaternions."""
-    dot = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    dot = _dot(q0, q1)[..., None]
     q1 = torch.where(dot < 0, -q1, q1)
     dot = torch.clamp(torch.abs(dot), -1.0, 1.0)
     theta = torch.arccos(dot)
@@ -307,15 +335,15 @@ def rotation_angle(R: torch.Tensor) -> torch.Tensor:
 
 
 def translation_norm(T: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.norm(translation(T), dim=-1)
+    return norm(translation(T))
 
 
 def orthonormalize(R: torch.Tensor) -> torch.Tensor:
     """Project a near-rotation onto SO(3) via Gram-Schmidt."""
     x = R[..., :, 0]
     y = R[..., :, 1]
-    x = x / torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True), min=_EPS)
-    y = y - torch.sum(x * y, dim=-1, keepdim=True) * x
-    y = y / torch.clamp(torch.linalg.norm(y, dim=-1, keepdim=True), min=_EPS)
+    x = x / torch.clamp(norm(x)[..., None], min=_EPS)
+    y = y - _dot(x, y)[..., None] * x
+    y = y / torch.clamp(norm(y)[..., None], min=_EPS)
     z = torch.linalg.cross(x, y, dim=-1)
     return torch.stack([x, y, z], dim=-1)

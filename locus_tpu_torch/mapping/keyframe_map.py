@@ -11,6 +11,11 @@ boxes, both maintained incrementally.
 Inserts and refreshes run every scan as masked passes (`enabled`): a
 disabled call leaves the state bit-identical. This slice is the unsharded
 map; the sharded map comes with ROADMAP item A16.
+
+Every function also takes a state with one leading batch dimension (the
+batched replay): each member has its own store, ring pointer and restart,
+operand cache, chunk boxes and `enabled` flag; the map 1-NN then runs
+kernel B3 once for all members.
 """
 from __future__ import annotations
 
@@ -19,12 +24,14 @@ from typing import NamedTuple
 import torch
 
 from locus_tpu_torch.config import MapperConfig
-from locus_tpu_torch.core.cloud import PAD_COORD, PointCloud
+from locus_tpu_torch.core.cloud import PAD_COORD, PointCloud, take_rows
+from locus_tpu_torch.ops.dispatch import resolve_device
 from locus_tpu_torch.ops.kernels.nn import (
     BT,
     build_nn_target,
     chunk_boxes,
     nearest_bounded_pre,
+    sq_norm3,
     update_chunk_boxes,
 )
 
@@ -41,6 +48,8 @@ class MapState(NamedTuple):
 
 
 def init_map(cfg: MapperConfig, device=None) -> MapState:
+    """An empty map on `device` (None: the CUDA device)."""
+    device = resolve_device(device)
     cloud = PointCloud.empty(cfg.map_capacity, device=device)
     nn_aug = build_nn_target(cloud.xyz)
     c_min, c_max = chunk_boxes(cloud.xyz, cloud.mask, nn_aug.shape[0])
@@ -84,7 +93,7 @@ def insert_keyframe(
         nearest_d2, _ = _map_nearest(state, keyframe.xyz, cfg.ann_search_radius)
     novel = keyframe.mask & (nearest_d2 > leaf2)
     if enabled is not None:
-        novel = novel & enabled
+        novel = novel & enabled[..., None]
 
     kf = keyframe.with_mask(novel).compact()       # novel points to the front
     k = kf.capacity
@@ -93,21 +102,23 @@ def insert_keyframe(
         raise ValueError(f"keyframe capacity {k} exceeds the map capacity {cap}")
     dev = kf.xyz.device
     n_novel = kf.count()
-    winmask = torch.arange(k, device=dev) < n_novel
+    winmask = torch.arange(k, device=dev) < n_novel[..., None]
     ptr = torch.where(state.write_ptr > cap - k, 0, state.write_ptr)
     new_ptr = ptr + n_novel
-    kf_inc = torch.ones((), dtype=torch.int32, device=dev)
+    kf_inc = torch.ones_like(state.num_keyframes)
     if enabled is not None:
         # the pointer (and its restart) only moves on an enabled insert
         new_ptr = torch.where(enabled, new_ptr, state.write_ptr)
         kf_inc = enabled.to(torch.int32)
-    slot = ptr.to(torch.int64) + torch.arange(k, device=dev)
+    slot = ptr.to(torch.int64)[..., None] + torch.arange(k, device=dev)   # (..., k)
 
     def merge0(arr, newvals):
-        """Read-modify-write of the [ptr, ptr + k) window of `arr`; only
-        lanes where winmask holds take newvals."""
-        w = winmask if arr.dim() == 1 else winmask[:, None]
-        return arr.index_copy(0, slot, torch.where(w, newvals, arr[slot]))
+        """Read-modify-write of each member's [ptr, ptr + k) window of
+        `arr`; only lanes where winmask holds take newvals."""
+        w = winmask if arr.dim() == slot.dim() else winmask[..., None]
+        new = torch.where(w, newvals, take_rows(arr, slot))
+        index = slot if arr.dim() == slot.dim() else slot[..., None].expand(new.shape)
+        return arr.scatter(slot.dim() - 1, index, new)
 
     cloud = state.cloud
     new_cloud = PointCloud(
@@ -116,9 +127,9 @@ def insert_keyframe(
         merge0(cloud.intensity, kf.intensity),
         merge0(cloud.mask, winmask),
     )
-    kf_index = merge0(state.kf_index, state.num_keyframes.expand(k))
+    kf_index = merge0(state.kf_index, state.num_keyframes[..., None].expand(slot.shape))
     # ptr + k <= cap <= m_pad: the padding rows are never touched
-    kf_rows = torch.cat([-2.0 * kf.xyz, torch.sum(kf.xyz * kf.xyz, dim=1, keepdim=True)], dim=1)
+    kf_rows = torch.cat([-2.0 * kf.xyz, sq_norm3(kf.xyz)[..., None]], dim=-1)
     nn_aug = merge0(state.nn_aug, kf_rows)
     c_min, c_max = update_chunk_boxes(
         state.chunk_min, state.chunk_max, torch.where(kf.mask, slot, cap), kf.xyz, kf.mask
@@ -144,21 +155,21 @@ def refresh_msw(
     never win), and the chunk boxes are rebuilt exactly from the kept
     points."""
     if enabled is None:
-        enabled = torch.tensor(True, device=position.device)
+        enabled = torch.ones(position.shape[:-1], dtype=torch.bool, device=position.device)
     half = cfg.box_filter_size * 0.5
-    inside = torch.all(torch.abs(state.cloud.xyz - position[None, :]) <= half, dim=-1)
-    keep = state.cloud.mask & (inside | ~enabled)
+    inside = torch.all(torch.abs(state.cloud.xyz - position[..., None, :]) <= half, dim=-1)
+    keep = state.cloud.mask & (inside | ~enabled[..., None])
     evicted = state.cloud.mask & ~keep
     cloud = state.cloud.with_mask(keep)
-    m_pad = state.nn_aug.shape[0]
-    ev_pad = torch.zeros((m_pad,), dtype=torch.bool, device=evicted.device)
-    ev_pad[: evicted.shape[0]] = evicted
+    m_pad = state.nn_aug.shape[-2]
+    ev_pad = torch.zeros(evicted.shape[:-1] + (m_pad,), dtype=torch.bool, device=evicted.device)
+    ev_pad[..., : evicted.shape[-1]] = evicted
     nn_aug = state.nn_aug.clone()
-    nn_aug[:, 3] = torch.where(ev_pad, float("inf"), state.nn_aug[:, 3])
+    nn_aug[..., 3] = torch.where(ev_pad, float("inf"), state.nn_aug[..., 3])
     c_min, c_max = chunk_boxes(cloud.xyz, cloud.mask, m_pad)
     return state._replace(
         cloud=cloud,
-        last_refresh_position=torch.where(enabled, position, state.last_refresh_position),
+        last_refresh_position=torch.where(enabled[..., None], position, state.last_refresh_position),
         nn_aug=nn_aug,
         chunk_min=c_min,
         chunk_max=c_max,
@@ -174,11 +185,12 @@ def approx_nearest_neighbors(
     return_d2, also the squared distances (reused by the insert's
     novelty gate)."""
     d2, idx = _map_nearest(state, query.xyz, radius)
-    mask = query.mask & state.cloud.mask[idx] & torch.isfinite(d2)
+    stored = PointCloud(*(take_rows(a, idx) for a in state.cloud))
+    mask = query.mask & stored.mask & torch.isfinite(d2)
     out = PointCloud(
-        torch.where(mask[:, None], state.cloud.xyz[idx], PAD_COORD),
-        torch.where(mask[:, None], state.cloud.normals[idx], 0.0),
-        torch.where(mask, state.cloud.intensity[idx], 0.0),
+        torch.where(mask[..., None], stored.xyz, PAD_COORD),
+        torch.where(mask[..., None], stored.normals, 0.0),
+        torch.where(mask, stored.intensity, 0.0),
         mask,
     )
     if return_d2:

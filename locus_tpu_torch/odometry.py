@@ -1,7 +1,8 @@
 """Scan-to-scan lidar odometry (counterpart of `locus_tpu/odometry.py`):
 register scan k against scan k-1 with an optional motion prior, keep the
 incremental and integrated estimates, gate divergent transforms, and
-optionally project onto flat ground."""
+optionally project onto flat ground. `update` also takes a state and scan
+with one leading batch dimension (the batched replay)."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -11,6 +12,7 @@ import torch
 from locus_tpu_torch.config import RegistrationConfig
 from locus_tpu_torch.core.cloud import PointCloud
 from locus_tpu_torch.geometry import se3
+from locus_tpu_torch.ops.dispatch import resolve_device
 from locus_tpu_torch.registration.gicp import GICPResult
 from locus_tpu_torch.registration.registry import make_registrar
 
@@ -32,7 +34,8 @@ class OdometryUpdate(NamedTuple):
 
 def init_state(capacity: int, initial_pose: Optional[torch.Tensor] = None, device=None) -> OdometryState:
     """`initial_pose` seeds the integrated estimate (the reference's
-    fiducial-calibration init)."""
+    fiducial-calibration init). `device=None` means the CUDA device."""
+    device = resolve_device(device)
     pose = se3.identity(device) if initial_pose is None else initial_pose.to(device, torch.float32)
     return OdometryState(
         initialized=torch.tensor(False, device=device),
@@ -47,7 +50,7 @@ def gate(T: torch.Tensor, cfg: RegistrationConfig) -> torch.Tensor:
     """Reference transform-delta gating (PointCloudOdometry.cc:305-316):
     reject if ||t|| > max_translation or ||euler_zyx|| > max_rotation."""
     if not cfg.transform_thresholding:
-        return torch.tensor(True, device=T.device)
+        return torch.ones(T.shape[:-2], dtype=torch.bool, device=T.device)
     r, p, y = se3.matrix_to_euler_zyx(se3.rotation(T))
     r_norm = torch.sqrt(r * r + p * p + y * y)
     return (se3.translation_norm(T) <= cfg.max_translation) & (r_norm <= cfg.max_rotation)
@@ -78,20 +81,20 @@ def update(
 
     # On the very first scan there is no reference yet: do not move.
     performed = state.initialized
-    use = performed & accepted
+    use = (performed & accepted)[..., None, None]
     incremental = torch.where(
-        use, T, torch.where(performed, state.incremental, se3.identity(dev))
+        use, T, torch.where(performed[..., None, None], state.incremental, se3.identity(dev))
     )
     integrated = torch.where(use, se3.compose(state.integrated, T), state.integrated)
     integrated = se3.make_transform(
         se3.orthonormalize(se3.rotation(integrated)), se3.translation(integrated)
     )
     new_state = OdometryState(
-        initialized=torch.tensor(True, device=dev),
+        initialized=torch.ones_like(state.initialized),
         reference=scan,
         incremental=incremental,
         integrated=integrated,
-        is_healthy=torch.tensor(True, device=dev),
+        is_healthy=torch.ones_like(state.is_healthy),
     )
     return OdometryUpdate(new_state, performed, accepted, icp)
 

@@ -1,18 +1,24 @@
-"""Box-pruned exact radius moments: kernel B1 (`csrc/moments.cu`), its
-plain PyTorch version, and the pruning that builds its visit lists.
+"""Exact radius moments: kernels B1, B4, B5 and B6 (`csrc/moments.cu`),
+their plain PyTorch version, and the pruning that builds the visit lists.
 
-Counterpart of `locus_tpu/ops/pallas/moments.py` (the production
-scan-normals path, `radius_moments_pallas_pruned_comps`). For each query
-the kernel sums, over the targets within radius r, the raw moments
+Counterpart of `locus_tpu/ops/pallas/moments.py`. For each query the
+kernels sum, over the targets within radius r, the raw moments
 [x, y, z, xx, yy, zz, xy, xz, yz, 1]; mean and covariance follow outside
-the kernel. The gate is the expanded (|t|^2 - 2 q.t) + |q|^2 <= r^2 of the
-JAX kernel. Query tiles and target chunks are pruned by their bounding
-boxes exactly as in `ops/kernels/nn.py` (visited chunks are those whose box
-lies within r of the tile's box), with MBT-point chunks.
+the kernels. The gate is the expanded (|t|^2 - 2 q.t) + |q|^2 <= r^2 of the
+JAX kernels.
 
-The wrapper `moments_visits` picks its path from the tensors' device: a
-CPU tensor takes the plain version, a CUDA tensor launches the kernel
-(inside `dispatch.no_kernels()`, the plain version).
+- B1 (`moments_visits`) and B4 (`moments_visits_batched`), the production
+  normals path (`radius_moments_pallas_pruned_comps`): query tiles and
+  MBT-point target chunks are pruned by their bounding boxes exactly as in
+  `ops/kernels/nn.py`. B4 serves B members in one launch, each with its
+  own radius.
+- B5 (`moments_dense`) and B6 (`moments_dense_batched`), the dense check
+  (`radius_moments_pallas_comps`): every 1024-point chunk, no pruning.
+
+Every function takes one leading batch dimension or none (the B-less call
+is the single path). The wrappers pick their path from the tensors'
+device: a CPU tensor takes the plain version, a CUDA tensor launches the
+kernel (inside `dispatch.no_kernels()`, the plain version).
 """
 from __future__ import annotations
 
@@ -25,49 +31,60 @@ from locus_tpu_torch.ops.kernels.nn import (
     BQ,
     _check_operand,
     _row_blocks,
+    check_tiling,
     chunk_boxes,
+    sq_norm3,
     tile_boxes,
+    visit_columns,
     visit_lists,
     visited_mask,
 )
 
-MBT = 512   # target chunk of the pruned moments pass
-NM = 10     # moment columns
-PAD_T2 = 1e12  # |t|^2 of padding targets: fails every gate
+MBT = 512        # target chunk of the pruned moments pass
+DENSE_BT = 1024  # target chunk of the dense pass (the JAX kernel's BT)
+NM = 10          # moment columns
+PAD_T2 = 1e12    # |t|^2 of padding targets: fails every gate
 
-# Launches of the CUDA kernel since the last reset (plain runs not counted).
-launches = 0
+# Launches of each CUDA kernel since the last reset (plain runs not counted).
+launches = 0                # B1
+batched_launches = 0        # B4
+dense_launches = 0          # B5
+dense_batched_launches = 0  # B6
 
 
 def moments_visits_plain(cnt, ids, r2, q, t, bt: int = MBT):
-    """Plain PyTorch version of the kernel: the same visit lists, gate and
-    outputs ((n_pad, 10) raw sums). The f32 features are summed in float64
-    and rounded once, as in the kernel, so the two agree bit for bit."""
-    n_pad, m_pad = q.shape[0], t.shape[0]
+    """Plain PyTorch version of kernels B1/B4 (and, with every chunk on
+    every list, B5/B6): the same visit lists, gate and outputs ((..., n_pad,
+    10) raw sums). `r2` holds one radius per member ((1,) or (B,)). The f32
+    features are summed in float64 and rounded once, as in the kernels, so
+    the two agree bit for bit."""
+    n_pad, m_pad = q.shape[-2], t.shape[-2]
+    lead = q.shape[:-2]
     visit = visited_mask(cnt, ids, m_pad // bt)
-    x, y, z = t[:, 0], t[:, 1], t[:, 2]
+    x, y, z = t[..., 0], t[..., 1], t[..., 2]
     feat = torch.stack(
-        [x, y, z, x * x, y * y, z * z, x * y, x * z, y * z, torch.ones_like(x)], dim=1
-    )
-    out = torch.empty((n_pad, NM), dtype=torch.float32, device=q.device)
-    for r0, r1 in _row_blocks(n_pad, m_pad):
-        qb = q[r0:r1]
+        [x, y, z, x * x, y * y, z * z, x * y, x * z, y * z, torch.ones_like(x)], dim=-1
+    ).double()
+    r2 = r2.reshape(lead + (1, 1))
+    out = torch.empty(lead + (n_pad, NM), dtype=torch.float32, device=q.device)
+    tt = t[..., None, :, :]
+    for r0, r1 in _row_blocks(n_pad, lead.numel() * m_pad):
+        qb = q[..., r0:r1, :]
         score = (
-            t[None, :, 3]
-            + qb[:, 0:1] * (-2.0 * t[None, :, 0])
-            + qb[:, 1:2] * (-2.0 * t[None, :, 1])
-            + qb[:, 2:3] * (-2.0 * t[None, :, 2])
+            tt[..., 3]
+            + qb[..., 0:1] * (-2.0 * tt[..., 0])
+            + qb[..., 1:2] * (-2.0 * tt[..., 1])
+            + qb[..., 2:3] * (-2.0 * tt[..., 2])
         )
-        cols = visit[r0 // BQ : r1 // BQ].repeat_interleave(BQ, 0).repeat_interleave(bt, 1)
-        W = (cols & (score + qb[:, 3:4] <= r2)).to(torch.float32)
-        out[r0:r1] = (W.double() @ feat.double()).float()
+        W = visit_columns(visit, r0, r1, bt) & (score + qb[..., 3:4] <= r2)
+        out[..., r0:r1, :] = (W.double() @ feat).float()
     return out
 
 
-def _moments_visits_cuda(cnt, ids, r2, q, t, bt: int = MBT):
-    global launches
+def _moments_cuda(kind, cnt, ids, r2, q, t, bt: int, batched: bool):
     from locus_tpu_torch.ops.kernels import build
 
+    dense = kind == "dense"
     dev = q.device
     for x, name, dtype, cols in (
         (q, "q", torch.float32, 4), (t, "t", torch.float32, 4),
@@ -75,78 +92,147 @@ def _moments_visits_cuda(cnt, ids, r2, q, t, bt: int = MBT):
         (r2, "r2", torch.float32, None),
     ):
         _check_operand(x, name, dtype, cols, dev)
-    n_pad, m_pad = q.shape[0], t.shape[0]
-    num_tiles, num_chunks = n_pad // BQ, m_pad // bt
-    if (n_pad % BQ or m_pad % bt or cnt.shape != (num_tiles,)
-            or ids.numel() != num_tiles * num_chunks or r2.numel() != 1):
-        raise ValueError(
-            f"moments_visits: q {tuple(q.shape)}, t {tuple(t.shape)}, cnt "
-            f"{tuple(cnt.shape)}, ids {tuple(ids.shape)}, r2 {tuple(r2.shape)} "
-            f"do not tile by BQ={BQ}, bt={bt}"
-        )
-    lib = build.library("moments")
-    fn = lib.locus_moments_visits
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    batch = q.shape[0] if batched else 1
+    entry = f"locus_moments_{kind}" + ("_batched" if batched else "")
+    num_tiles, num_chunks = check_tiling(entry, q, t, cnt, ids, batch, bt, batched)
+    if r2.shape != (batch,):
+        raise ValueError(f"{entry}: r2 {tuple(r2.shape)}, expected ({batch},)")
+    fn = getattr(build.library("moments"), entry)
+    pointers = (q, t) if dense else (q, t, cnt, ids)
+    sizes = ((batch,) if batched else ()) + (num_tiles, num_chunks, bt)
+    fn.argtypes = [ctypes.c_void_p] * (len(pointers) + 1) + [ctypes.c_int] * len(sizes) + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
-    out = torch.empty((n_pad, NM), dtype=torch.float32, device=dev)
+    out = torch.empty(q.shape[:-1] + (NM,), dtype=torch.float32, device=dev)
     status = fn(
-        q.data_ptr(), t.data_ptr(), cnt.data_ptr(), ids.data_ptr(), r2.data_ptr(),
-        num_tiles, num_chunks, bt, out.data_ptr(),
+        *(p.data_ptr() for p in pointers), r2.data_ptr(), *sizes, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    build.check(status, "locus_moments_visits")
-    launches += 1
+    build.check(status, entry)
+    counter = ("dense_" if dense else "") + ("batched_" if batched else "") + "launches"
+    globals()[counter] += 1
     return out
 
 
 def moments_visits(cnt, ids, r2, q, t, bt: int = MBT):
-    """Raw radius moments (n_pad, 10) of each packed query over the
-    targets of its tile's visited chunks."""
+    """Raw radius moments (n_pad, 10) of each packed query of one member
+    over the targets of its tile's visited chunks (kernel B1); r2 (1,)."""
     if q.is_cuda and dispatch.kernels_enabled():
-        return _moments_visits_cuda(cnt, ids, r2, q, t, bt)
+        return _moments_cuda("visits", cnt, ids, r2, q, t, bt, batched=False)
     return moments_visits_plain(cnt, ids, r2, q, t, bt)
 
 
-def pack_operands(query: torch.Tensor, target: torch.Tensor):
-    """(N,3), (M,3) -> q (n_pad, 4) [x, y, z, |q|^2] and t (m_pad, 4)
-    [x, y, z, |t|^2] with padding targets at |t|^2 = PAD_T2."""
-    n, m = query.shape[0], target.shape[0]
-    q = torch.zeros((-(-n // BQ) * BQ, 4), dtype=torch.float32, device=query.device)
-    q[:n, :3] = query
-    q[:n, 3] = torch.sum(query * query, dim=1)
-    t = torch.zeros((-(-m // MBT) * MBT, 4), dtype=torch.float32, device=target.device)
-    t[:m, :3] = target
-    t[:m, 3] = torch.sum(target * target, dim=1)
-    t[m:, 3] = PAD_T2
+def moments_visits_batched(cnt, ids, r2, q, t, bt: int = MBT):
+    """Kernel B1 for B members in one launch (kernel B4): cnt (B, G), ids
+    (B, G*C), r2 (B,) one radius per member, q (B, n_pad, 4), t (B, m_pad,
+    4) -> (B, n_pad, 10)."""
+    if q.is_cuda and dispatch.kernels_enabled():
+        return _moments_cuda("visits", cnt, ids, r2, q, t, bt, batched=True)
+    return moments_visits_plain(cnt, ids, r2, q, t, bt)
+
+
+def dense_visits(q: torch.Tensor, t: torch.Tensor):
+    """The visit lists of the dense pass: every tile visits every
+    DENSE_BT-chunk, in order."""
+    num_tiles, num_chunks = q.shape[-2] // BQ, t.shape[-2] // DENSE_BT
+    lead = q.shape[:-2]
+    cnt = torch.full(lead + (num_tiles,), num_chunks, dtype=torch.int32, device=q.device)
+    ids = torch.arange(num_chunks, dtype=torch.int32, device=q.device).repeat(num_tiles)
+    return cnt, ids.expand(lead + ids.shape).contiguous()
+
+
+def moments_dense(r2, q, t):
+    """Dense raw radius moments (n_pad, 10) of one member over every
+    target (kernel B5; the dense check of B1); r2 (1,)."""
+    cnt, ids = dense_visits(q, t)
+    if q.is_cuda and dispatch.kernels_enabled():
+        return _moments_cuda("dense", cnt, ids, r2, q, t, DENSE_BT, batched=False)
+    return moments_visits_plain(cnt, ids, r2, q, t, DENSE_BT)
+
+
+def moments_dense_batched(r2, q, t):
+    """Kernel B5 for B members in one launch (kernel B6): r2 (B,), q (B,
+    n_pad, 4), t (B, m_pad, 4) -> (B, n_pad, 10)."""
+    cnt, ids = dense_visits(q, t)
+    if q.is_cuda and dispatch.kernels_enabled():
+        return _moments_cuda("dense", cnt, ids, r2, q, t, DENSE_BT, batched=True)
+    return moments_visits_plain(cnt, ids, r2, q, t, DENSE_BT)
+
+
+def pack_operands(query: torch.Tensor, target: torch.Tensor, bt: int = MBT):
+    """(..., N, 3), (..., M, 3) -> q (..., n_pad, 4) [x, y, z, |q|^2] and
+    t (..., m_pad, 4) [x, y, z, |t|^2], target rows padded to a multiple of
+    `bt` with padding targets at |t|^2 = PAD_T2."""
+    n, m = query.shape[-2], target.shape[-2]
+    q = torch.zeros(query.shape[:-2] + (-(-n // BQ) * BQ, 4), dtype=torch.float32, device=query.device)
+    q[..., :n, :3] = query
+    q[..., :n, 3] = sq_norm3(query)
+    t = torch.zeros(target.shape[:-2] + (-(-m // bt) * bt, 4), dtype=torch.float32, device=target.device)
+    t[..., :m, :3] = target
+    t[..., :m, 3] = sq_norm3(target)
+    t[..., m:, 3] = PAD_T2
     return q, t
 
 
 def prune(query: torch.Tensor, target: torch.Tensor, r2):
     """Visit lists (cnt, ids) of the query tiles against the MBT-chunks of
-    `target` at squared radius r2; sentinel points (|coord| >= 1e7) are
-    left out of the boxes."""
-    m_pad = -(-target.shape[0] // MBT) * MBT
+    `target` at squared radius r2 (batched: one value or one per member);
+    sentinel points (|coord| >= 1e7) are left out of the boxes."""
+    m_pad = -(-target.shape[-2] // MBT) * MBT
     c_min, c_max = chunk_boxes(
-        target, torch.all(target.abs() < 1e7, dim=1), m_pad, bt=MBT
+        target, torch.all(target.abs() < 1e7, dim=-1), m_pad, bt=MBT
     )
     t_min, t_max = tile_boxes(query)
     return visit_lists(t_min, t_max, c_min, c_max, r2)
 
 
+def _radius_r2(query: torch.Tensor, radius) -> torch.Tensor:
+    """Squared radius as one f32 per member: (1,) single, (B,) batched."""
+    r = torch.as_tensor(radius, dtype=torch.float32, device=query.device)
+    r2 = r * r
+    return r2.reshape(1) if query.dim() == 2 else r2.expand(query.shape[:1]).contiguous()
+
+
 def radius_moments_pruned_comps(query: torch.Tensor, target: torch.Tensor, radius):
     """Box-pruned exact radius moments in component form (counterpart of
-    `radius_moments_pallas_pruned_comps`): (count (N,), (mx, my, mz),
-    (cxx, cxy, cxz, cyy, cyz, czz)). `radius` may be a 0-d tensor."""
-    r2 = radius * radius
+    `radius_moments_pallas_pruned_comps`; batched, of its vmap): (count
+    (..., N), (mx, my, mz), (cxx, cxy, cxz, cyy, cyz, czz)). `radius` may be
+    a 0-d tensor, or batched a (B,) tensor of per-member radii. Runs kernel
+    B1, batched B4."""
+    r2 = _radius_r2(query, radius)
     cnt, ids = prune(query, target, r2)
     q, t = pack_operands(query, target)
-    r2_t = torch.as_tensor(r2, dtype=torch.float32, device=query.device).reshape(1)
-    out = moments_visits(cnt, ids, r2_t, q, t)
-    return moments_to_comps(out[: query.shape[0]])
+    run = moments_visits_batched if query.dim() == 3 else moments_visits
+    out = run(cnt, ids, r2, q, t)
+    return moments_to_comps(out[..., : query.shape[-2], :])
+
+
+def radius_moments_comps(query: torch.Tensor, target: torch.Tensor, radius):
+    """Dense exact radius moments in component form (counterpart of
+    `radius_moments_pallas_comps`; batched, of its vmap). Runs kernel B5,
+    batched B6."""
+    r2 = _radius_r2(query, radius)
+    q, t = pack_operands(query, target, bt=DENSE_BT)
+    run = moments_dense_batched if query.dim() == 3 else moments_dense
+    return moments_to_comps(run(r2, q, t)[..., : query.shape[-2], :])
+
+
+def radius_moments(query: torch.Tensor, target: torch.Tensor, radius):
+    """Dense-layout form of `radius_moments_comps` (counterpart of
+    `radius_moments_pallas`): (count (..., N), mean (..., N, 3), cov
+    (..., N, 3, 3))."""
+    count, (mx, my, mz), (cxx, cxy, cxz, cyy, cyz, czz) = radius_moments_comps(query, target, radius)
+    mean = torch.stack([mx, my, mz], dim=-1)
+    cov = torch.stack(
+        [torch.stack([cxx, cxy, cxz], dim=-1),
+         torch.stack([cxy, cyy, cyz], dim=-1),
+         torch.stack([cxz, cyz, czz], dim=-1)],
+        dim=-2,
+    )
+    return count, mean, cov
 
 
 def moments_to_comps(out: torch.Tensor):
-    """(N,>=10) raw moment columns -> (count, mean comps, cov comps).
+    """(..., N, >=10) raw moment columns -> (count, mean comps, cov comps).
 
     f32 note: the one-pass E[xx^T] - m m^T form carries an absolute
     error ~eps*|x|^2 (~4e-5 at 20 m sensor range). That is fine HERE:
@@ -162,12 +248,12 @@ def moments_to_comps(out: torch.Tensor):
     product is exact. At the sub-millimetre variances of thin neighbourhoods
     the second rounding of a plain f32 product-then-subtract is enough to
     turn the normal."""
-    count = out[:, 9]
+    count = out[..., 9]
     denom = torch.clamp(count, min=1.0)
-    mx, my, mz = out[:, 0] / denom, out[:, 1] / denom, out[:, 2] / denom
+    mx, my, mz = out[..., 0] / denom, out[..., 1] / denom, out[..., 2] / denom
 
     def cov(col, a, b):
-        e = (out[:, col] / denom).double()
+        e = (out[..., col] / denom).double()
         return (e - a.double() * b.double()).float()
 
     return count, (mx, my, mz), (

@@ -1,5 +1,5 @@
-"""Visit-list exact 1-NN: kernel B2 (`csrc/nn.cu`), its plain PyTorch
-version, and the box pruning that builds its visit lists.
+"""Visit-list exact 1-NN: kernels B2 and B3 (`csrc/nn.cu`), their plain
+PyTorch version, and the box pruning that builds their visit lists.
 
 Counterpart of `locus_tpu/ops/pallas/nn.py`. With
     t_aug = [-2x, -2y, -2z, |t|^2]      (m_pad, 4), one row per target
@@ -15,9 +15,13 @@ within the search radius. Every target within the radius of a valid query
 lies in a visited chunk, so the bounded search is exact at any tile size.
 The visited chunk ids are packed to the front of each tile's row.
 
-The wrapper `nn_visits` picks its path from the tensors' device: a CPU
-tensor takes the plain version, a CUDA tensor launches the kernel (inside
-`dispatch.no_kernels()`, the plain version).
+Batching: every function here also takes one leading batch dimension (the
+multi-robot replay, B members each with its own target and visit lists),
+the counterpart of the JAX functions under vmap. The B-less call is
+the single path. The wrappers pick their path from the tensors' device: a
+CPU tensor takes the plain version, a CUDA tensor launches the kernel
+(inside `dispatch.no_kernels()`, the plain version). `nn_visits` launches
+B2 for one member, `nn_visits_batched` B3 for B members in one launch.
 """
 from __future__ import annotations
 
@@ -25,28 +29,48 @@ import ctypes
 
 import torch
 
+from locus_tpu_torch.core.cloud import take_rows
 from locus_tpu_torch.ops import dispatch
+from locus_tpu_torch.utils.linalg import sum_last
 
 BT = 2048      # map target chunk (the map caches are sized by it)
 SCAN_BT = 512  # scan-scale target chunk (GICP against one scan)
 BQ = 64        # query tile of the port: one CUDA block
 BOX_BIG = 1e9
 
-# Launches of the CUDA kernel since the last reset, by chunk size (each
-# size is its own template instance); plain runs are not counted.
+# Launches of the CUDA kernels since the last reset, by chunk size (each
+# size is its own template instance): B2 (`launches`, one member) and B3
+# (`batched_launches`, one launch for a batch). Plain runs are not counted.
 launches = {SCAN_BT: 0, BT: 0}
+batched_launches = {SCAN_BT: 0, BT: 0}
+
+
+def sq_norm3(x: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (...) x^2 + y^2 + z^2, summed left to right (a batch
+    member rounds as the single call does)."""
+    return sum_last(x * x)
+
+
+def _pad_dim(x: torch.Tensor, size: int, fill, dim: int) -> torch.Tensor:
+    """x padded with `fill` to `size` along `dim`."""
+    n = x.shape[dim]
+    if size == n:
+        return x
+    shape = list(x.shape)
+    shape[dim] = size - n
+    return torch.cat([x, torch.full(shape, fill, dtype=x.dtype, device=x.device)], dim=dim)
 
 
 def build_nn_target(target: torch.Tensor, m_pad: int | None = None, bt: int = BT) -> torch.Tensor:
-    """(M,3) coordinates -> (m_pad, 4) operand; padding rows never win
-    (|t|^2 = +inf)."""
-    m = target.shape[0]
+    """(..., M, 3) coordinates -> (..., m_pad, 4) operand; padding rows
+    never win (|t|^2 = +inf)."""
+    m = target.shape[-2]
     if m_pad is None:
         m_pad = -(-m // bt) * bt
-    t = torch.zeros((m_pad, 4), dtype=torch.float32, device=target.device)
-    t[:m, :3] = -2.0 * target
-    t[:m, 3] = torch.sum(target * target, dim=1)
-    t[m:, 3] = float("inf")
+    t = torch.zeros(target.shape[:-2] + (m_pad, 4), dtype=torch.float32, device=target.device)
+    t[..., :m, :3] = -2.0 * target
+    t[..., :m, 3] = sq_norm3(target)
+    t[..., m:, 3] = float("inf")
     return t
 
 
@@ -55,30 +79,27 @@ def update_nn_target(
 ) -> torch.Tensor:
     """Write K points into the operand at rows `idx`; rows with
     valid=False are dropped (they land on a scratch row that is cut off)."""
-    m_pad = t_aug.shape[0]
-    rows = torch.cat([-2.0 * xyz, torch.sum(xyz * xyz, dim=1, keepdim=True)], dim=1)
-    ext = torch.cat([t_aug, t_aug.new_zeros((1, 4))], dim=0)
+    m_pad = t_aug.shape[-2]
+    rows = torch.cat([-2.0 * xyz, sq_norm3(xyz)[..., None]], dim=-1)
+    ext = _pad_dim(t_aug, m_pad + 1, 0.0, -2)
     safe = torch.where(valid, idx.to(torch.int64), m_pad)
-    return ext.index_copy(0, safe, rows)[:m_pad]
+    return ext.scatter(-2, safe[..., None].expand(rows.shape), rows)[..., :m_pad, :]
 
 
 def chunk_boxes(
     target: torch.Tensor, target_mask: torch.Tensor, m_pad: int | None = None, bt: int = BT
 ):
-    """Per-chunk bounding boxes over valid targets: (c_min (C,3),
-    c_max (C,3)). A chunk with no valid point gets (+BOX_BIG, -BOX_BIG),
-    which every box test rejects."""
-    m = target.shape[0]
+    """Per-chunk bounding boxes over valid targets: (c_min (..., C, 3),
+    c_max (..., C, 3)). A chunk with no valid point gets (+BOX_BIG,
+    -BOX_BIG), which every box test rejects."""
+    m = target.shape[-2]
     if m_pad is None:
         m_pad = -(-m // bt) * bt
-    tc = torch.zeros((m_pad, 3), dtype=torch.float32, device=target.device)
-    tc[:m] = target
-    mc = torch.zeros((m_pad,), dtype=torch.bool, device=target.device)
-    mc[:m] = target_mask
-    tc = tc.view(m_pad // bt, bt, 3)
-    mc = mc.view(m_pad // bt, bt, 1)
-    c_min = torch.where(mc, tc, BOX_BIG).amin(dim=1)
-    c_max = torch.where(mc, tc, -BOX_BIG).amax(dim=1)
+    lead = target.shape[:-2]
+    tc = _pad_dim(target.to(torch.float32), m_pad, 0.0, -2).reshape(lead + (m_pad // bt, bt, 3))
+    mc = _pad_dim(target_mask, m_pad, False, -1).reshape(lead + (m_pad // bt, bt, 1))
+    c_min = torch.where(mc, tc, BOX_BIG).amin(dim=-2)
+    c_max = torch.where(mc, tc, -BOX_BIG).amax(dim=-2)
     return c_min, c_max
 
 
@@ -86,56 +107,58 @@ def update_chunk_boxes(c_min, c_max, idx, xyz, valid, bt: int = BT):
     """Grow chunk boxes to cover K points written at rows `idx` (invalid
     writes ignored). Boxes only grow until the next exact rebuild: a
     larger box only visits more, never misses a point."""
-    num_chunks = c_min.shape[0]
-    cid = torch.where(valid, idx.to(torch.int64) // bt, num_chunks)[:, None].expand(-1, 3)
-    lo = torch.where(valid[:, None], xyz, BOX_BIG)
-    hi = torch.where(valid[:, None], xyz, -BOX_BIG)
-    pad = c_min.new_zeros((1, 3))
-    new_min = torch.cat([c_min, pad]).scatter_reduce(0, cid, lo, "amin")[:num_chunks]
-    new_max = torch.cat([c_max, pad]).scatter_reduce(0, cid, hi, "amax")[:num_chunks]
-    return new_min, new_max
+    num_chunks = c_min.shape[-2]
+    cid = torch.where(valid, idx.to(torch.int64) // bt, num_chunks)[..., None].expand(xyz.shape)
+    lo = torch.where(valid[..., None], xyz, BOX_BIG)
+    hi = torch.where(valid[..., None], xyz, -BOX_BIG)
+    new_min = _pad_dim(c_min, num_chunks + 1, 0.0, -2).scatter_reduce(-2, cid, lo, "amin")
+    new_max = _pad_dim(c_max, num_chunks + 1, 0.0, -2).scatter_reduce(-2, cid, hi, "amax")
+    return new_min[..., :num_chunks, :], new_max[..., :num_chunks, :]
 
 
 def tile_boxes(points: torch.Tensor, bq: int = BQ):
     """Per-tile bounding boxes over valid (|coord| < 1e7) points:
-    (t_min (G,3), t_max (G,3)), tiles of `bq` rows."""
-    n = points.shape[0]
+    (t_min (..., G, 3), t_max (..., G, 3)), tiles of `bq` rows."""
+    n = points.shape[-2]
     n_pad = -(-n // bq) * bq
-    p = torch.zeros((n_pad, 3), dtype=torch.float32, device=points.device)
-    p[:n] = points
-    v = torch.zeros((n_pad,), dtype=torch.bool, device=points.device)
-    v[:n] = torch.all(points.abs() < 1e7, dim=1)
-    p = p.view(n_pad // bq, bq, 3)
-    v = v.view(n_pad // bq, bq, 1)
-    return torch.where(v, p, BOX_BIG).amin(dim=1), torch.where(v, p, -BOX_BIG).amax(dim=1)
+    lead = points.shape[:-2]
+    v = torch.all(points.abs() < 1e7, dim=-1)
+    p = _pad_dim(points.to(torch.float32), n_pad, 0.0, -2).reshape(lead + (n_pad // bq, bq, 3))
+    v = _pad_dim(v, n_pad, False, -1).reshape(lead + (n_pad // bq, bq, 1))
+    return torch.where(v, p, BOX_BIG).amin(dim=-2), torch.where(v, p, -BOX_BIG).amax(dim=-2)
 
 
 def visit_lists(t_min, t_max, c_min, c_max, r2):
     """Box-gap test of every (tile, chunk) pair at squared radius `r2`;
-    returns (cnt (G,) int32, ids (G*C,) int32): tile g visits chunks
-    ids[g*C : g*C + cnt[g]], in ascending order. Unused slots hold 0."""
+    returns (cnt (..., G) int32, ids (..., G*C) int32): tile g visits
+    chunks ids[g*C : g*C + cnt[g]], in ascending order. Unused slots hold 0.
+    Batched, `r2` is one value for all members or a (B,) tensor."""
     gap = torch.clamp(
-        torch.maximum(c_min[None] - t_max[:, None], t_min[:, None] - c_max[None]), min=0.0
+        torch.maximum(c_min[..., None, :, :] - t_max[..., :, None, :],
+                      t_min[..., :, None, :] - c_max[..., None, :, :]),
+        min=0.0,
     )
-    visit = torch.sum(gap * gap, dim=-1) <= r2                     # (G, C)
-    num_tiles, num_chunks = visit.shape
-    cnt = torch.sum(visit, dim=1, dtype=torch.int32)
+    r2 = torch.as_tensor(r2, dtype=torch.float32, device=gap.device)
+    r2 = r2.reshape(r2.shape + (1, 1)) if t_min.dim() == 3 else r2.reshape(())   # (1,) single
+    visit = sq_norm3(gap) <= r2                                      # (..., G, C)
+    num_chunks = visit.shape[-1]
+    cnt = torch.sum(visit, dim=-1, dtype=torch.int32)
     # visited chunk c goes to slot cumsum - 1; the rest to a scratch column
-    pos = torch.where(visit, torch.cumsum(visit, dim=1) - 1, num_chunks)
-    col = torch.arange(num_chunks, device=visit.device).expand(num_tiles, -1)
-    ids = torch.zeros((num_tiles, num_chunks + 1), dtype=torch.int64, device=visit.device)
-    ids.scatter_(1, pos, col)
-    return cnt, ids[:, :num_chunks].to(torch.int32).reshape(-1)
+    pos = torch.where(visit, torch.cumsum(visit, dim=-1) - 1, num_chunks)
+    col = torch.arange(num_chunks, device=visit.device).expand(visit.shape)
+    ids = torch.zeros(visit.shape[:-1] + (num_chunks + 1,), dtype=torch.int64, device=visit.device)
+    ids.scatter_(-1, pos, col)
+    return cnt, ids[..., :num_chunks].to(torch.int32).flatten(-2)
 
 
 def visited_mask(cnt: torch.Tensor, ids: torch.Tensor, num_chunks: int) -> torch.Tensor:
-    """(G, C) bool: which chunks each tile visits, from its visit list."""
-    num_tiles = cnt.shape[0]
-    used = torch.arange(num_chunks, device=cnt.device)[None, :] < cnt[:, None]
-    slot = torch.where(used, ids.view(num_tiles, num_chunks).to(torch.int64), num_chunks)
-    mask = torch.zeros((num_tiles, num_chunks + 1), dtype=torch.bool, device=cnt.device)
-    mask.scatter_(1, slot, True)
-    return mask[:, :num_chunks]
+    """(..., G, C) bool: which chunks each tile visits, from its visit list."""
+    used = torch.arange(num_chunks, device=cnt.device) < cnt[..., None]
+    ids = ids.reshape(cnt.shape + (num_chunks,)).to(torch.int64)
+    slot = torch.where(used, ids, num_chunks)
+    mask = torch.zeros(cnt.shape + (num_chunks + 1,), dtype=torch.bool, device=cnt.device)
+    mask.scatter_(-1, slot, True)
+    return mask[..., :num_chunks]
 
 
 def _row_blocks(num_rows: int, num_cols: int, bq: int = BQ):
@@ -145,26 +168,28 @@ def _row_blocks(num_rows: int, num_cols: int, bq: int = BQ):
     return [(r, min(r + step, num_rows)) for r in range(0, num_rows, step)]
 
 
+def visit_columns(visit: torch.Tensor, r0: int, r1: int, bt: int) -> torch.Tensor:
+    """(..., r1 - r0, m_pad) bool: the targets query rows [r0, r1) visit."""
+    return visit[..., r0 // BQ : r1 // BQ, :].repeat_interleave(BQ, -2).repeat_interleave(bt, -1)
+
+
 def nn_visits_plain(cnt, ids, q, t_aug, bt: int):
-    """Plain PyTorch version of the kernel: the same visit lists, score
-    and tie rule (lowest index among the minimal scores). Returns
-    (score (n_pad,) f32, idx (n_pad,) int32)."""
-    n_pad, m_pad = q.shape[0], t_aug.shape[0]
+    """Plain PyTorch version of kernels B2 and B3: the same visit lists,
+    score and tie rule (lowest index among the minimal scores). Takes one
+    leading batch dimension or none. Returns (score (..., n_pad) f32,
+    idx (..., n_pad) int32)."""
+    n_pad, m_pad = q.shape[-2], t_aug.shape[-2]
+    lead = q.shape[:-2]
     visit = visited_mask(cnt, ids, m_pad // bt)
-    best_d = torch.empty((n_pad,), dtype=torch.float32, device=q.device)
-    best_i = torch.empty((n_pad,), dtype=torch.int32, device=q.device)
-    for r0, r1 in _row_blocks(n_pad, m_pad):
-        qb = q[r0:r1]
-        score = (
-            t_aug[None, :, 3]
-            + qb[:, 0:1] * t_aug[None, :, 0]
-            + qb[:, 1:2] * t_aug[None, :, 1]
-            + qb[:, 2:3] * t_aug[None, :, 2]
-        )
-        cols = visit[r0 // BQ : r1 // BQ].repeat_interleave(BQ, 0).repeat_interleave(bt, 1)
-        d, i = torch.min(torch.where(cols, score, float("inf")), dim=1)
-        best_d[r0:r1] = d
-        best_i[r0:r1] = i.to(torch.int32)
+    best_d = torch.empty(lead + (n_pad,), dtype=torch.float32, device=q.device)
+    best_i = torch.empty(lead + (n_pad,), dtype=torch.int32, device=q.device)
+    for r0, r1 in _row_blocks(n_pad, lead.numel() * m_pad):
+        qb = q[..., r0:r1, :]
+        t = t_aug[..., None, :, :]
+        score = t[..., 3] + qb[..., 0:1] * t[..., 0] + qb[..., 1:2] * t[..., 1] + qb[..., 2:3] * t[..., 2]
+        d, i = torch.min(torch.where(visit_columns(visit, r0, r1, bt), score, float("inf")), dim=-1)
+        best_d[..., r0:r1] = d
+        best_i[..., r0:r1] = i.to(torch.int32)
     return best_d, best_i
 
 
@@ -174,11 +199,29 @@ def _check_operand(x: torch.Tensor, name: str, dtype, cols: int | None, device):
             f"{name}: expected a contiguous {dtype} tensor on {device}, got "
             f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})"
         )
-    if cols is not None and (x.dim() != 2 or x.shape[1] != cols):
-        raise ValueError(f"{name}: expected shape (*, {cols}), got {tuple(x.shape)}")
+    if cols is not None and x.shape[-1] != cols:
+        raise ValueError(f"{name}: expected shape (..., {cols}), got {tuple(x.shape)}")
 
 
-def _nn_visits_cuda(cnt, ids, q, t_aug, bt: int):
+def check_tiling(what, q, t, cnt, ids, batch, bt: int, batched: bool):
+    """Shapes of a (batched) visit-list launch: (num_tiles, num_chunks).
+    Raises on anything the kernels do not take."""
+    rank = 3 if batched else 2
+    n_pad, m_pad = q.shape[-2], t.shape[-2]
+    num_tiles, num_chunks = n_pad // BQ, m_pad // bt
+    lead = (batch,) if batched else ()
+    if (q.dim() != rank or t.dim() != rank or q.shape[:-2] != lead or t.shape[:-2] != lead
+            or n_pad % BQ or m_pad % bt or cnt.shape != lead + (num_tiles,)
+            or ids.shape != lead + (num_tiles * num_chunks,)):
+        raise ValueError(
+            f"{what}: q {tuple(q.shape)}, t {tuple(t.shape)}, cnt {tuple(cnt.shape)}, "
+            f"ids {tuple(ids.shape)} do not tile by BQ={BQ}, bt={bt}"
+            + (f" over a batch of {batch}" if batched else "")
+        )
+    return num_tiles, num_chunks
+
+
+def _nn_visits_cuda(cnt, ids, q, t_aug, bt: int, batched: bool):
     from locus_tpu_torch.ops.kernels import build
 
     dev = q.device
@@ -187,43 +230,48 @@ def _nn_visits_cuda(cnt, ids, q, t_aug, bt: int):
         (cnt, "cnt", torch.int32, None), (ids, "ids", torch.int32, None),
     ):
         _check_operand(x, name, dtype, cols, dev)
-    n_pad, m_pad = q.shape[0], t_aug.shape[0]
-    num_tiles, num_chunks = n_pad // BQ, m_pad // bt
-    if n_pad % BQ or m_pad % bt or cnt.shape != (num_tiles,) or ids.numel() != num_tiles * num_chunks:
-        raise ValueError(
-            f"nn_visits: q {tuple(q.shape)}, t_aug {tuple(t_aug.shape)}, cnt "
-            f"{tuple(cnt.shape)}, ids {tuple(ids.shape)} do not tile by BQ={BQ}, bt={bt}"
-        )
-    lib = build.library("nn")
-    fn = lib.locus_nn_visits
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    batch = q.shape[0] if batched else 1
+    entry = "locus_nn_visits_batched" if batched else "locus_nn_visits"
+    num_tiles, num_chunks = check_tiling(entry, q, t_aug, cnt, ids, batch, bt, batched)
+    fn = getattr(build.library("nn"), entry)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (4 if batched else 3) + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
-    d = torch.empty((n_pad,), dtype=torch.float32, device=dev)
-    i = torch.empty((n_pad,), dtype=torch.int32, device=dev)
+    d = torch.empty(q.shape[:-1], dtype=torch.float32, device=dev)
+    i = torch.empty(q.shape[:-1], dtype=torch.int32, device=dev)
+    sizes = (batch, num_tiles, num_chunks, bt) if batched else (num_tiles, num_chunks, bt)
     status = fn(
-        q.data_ptr(), t_aug.data_ptr(), cnt.data_ptr(), ids.data_ptr(),
-        num_tiles, num_chunks, bt, d.data_ptr(), i.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        q.data_ptr(), t_aug.data_ptr(), cnt.data_ptr(), ids.data_ptr(), *sizes,
+        d.data_ptr(), i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
-    build.check(status, "locus_nn_visits")
-    launches[bt] += 1
+    build.check(status, entry)
+    (batched_launches if batched else launches)[bt] += 1
     return d, i
 
 
 def nn_visits(cnt, ids, q, t_aug, bt: int):
-    """Visit-list 1-NN: (score (n_pad,), idx (n_pad,) int32) of each packed
-    query against the operand rows of its tile's visited chunks."""
+    """Visit-list 1-NN of one member (kernel B2): (score (n_pad,), idx
+    (n_pad,) int32) of each packed query against the operand rows of its
+    tile's visited chunks."""
     if q.is_cuda and dispatch.kernels_enabled():
-        return _nn_visits_cuda(cnt, ids, q, t_aug, bt)
+        return _nn_visits_cuda(cnt, ids, q, t_aug, bt, batched=False)
+    return nn_visits_plain(cnt, ids, q, t_aug, bt)
+
+
+def nn_visits_batched(cnt, ids, q, t_aug, bt: int):
+    """Visit-list 1-NN of B members in one launch (kernel B3): cnt (B, G),
+    ids (B, G*C), q (B, n_pad, 4), t_aug (B, m_pad, 4) -> (score (B, n_pad),
+    idx (B, n_pad) int32), each member against its own operand."""
+    if q.is_cuda and dispatch.kernels_enabled():
+        return _nn_visits_cuda(cnt, ids, q, t_aug, bt, batched=True)
     return nn_visits_plain(cnt, ids, q, t_aug, bt)
 
 
 def pack_query(query: torch.Tensor, bq: int = BQ) -> torch.Tensor:
-    """(N,3) -> (n_pad, 4) [x, y, z, 1] rows, zero padding rows."""
-    n = query.shape[0]
-    q = torch.zeros((-(-n // bq) * bq, 4), dtype=torch.float32, device=query.device)
-    q[:n, :3] = query
-    q[:n, 3] = 1.0
+    """(..., N, 3) -> (..., n_pad, 4) [x, y, z, 1] rows, zero padding rows."""
+    n = query.shape[-2]
+    q = torch.zeros(query.shape[:-2] + (-(-n // bq) * bq, 4), dtype=torch.float32, device=query.device)
+    q[..., :n, :3] = query
+    q[..., :n, 3] = 1.0
     return q
 
 
@@ -237,16 +285,17 @@ def nearest_bounded_pre(
     bt: int = BT,
 ):
     """Radius-bounded exact 1-NN against a prebuilt operand and chunk boxes
-    (counterpart of `nearest_pallas_bounded_pre`). Returns (d2 (N,),
-    idx (N,) int64); queries whose nearest target lies beyond `radius`
-    get d2 = +inf. `bt` must be the chunk size the operand and boxes were
-    built with."""
-    n, m = query.shape[0], target.shape[0]
+    (counterpart of `nearest_pallas_bounded_pre`; batched, of its vmap).
+    Returns (d2 (..., N), idx (..., N) int64); queries whose nearest target
+    lies beyond `radius` get d2 = +inf. `bt` must be the chunk size the
+    operand and boxes were built with. A leading batch dimension runs
+    kernel B3, none kernel B2."""
+    n, m = query.shape[-2], target.shape[-2]
     r2 = radius * radius
     t_min, t_max = tile_boxes(query)
     cnt, ids = visit_lists(t_min, t_max, c_min, c_max, r2)
-    _, i = nn_visits(cnt, ids, pack_query(query), t_aug, bt)
-    idx = torch.clamp(i[:n].to(torch.int64), 0, m - 1)
-    diff = query - target[idx]
-    d2 = torch.sum(diff * diff, dim=1)
+    run = nn_visits_batched if query.dim() == 3 else nn_visits
+    _, i = run(cnt, ids, pack_query(query), t_aug, bt)
+    idx = torch.clamp(i[..., :n].to(torch.int64), 0, m - 1)
+    d2 = sq_norm3(query - take_rows(target, idx))
     return torch.where(d2 <= r2, d2, float("inf")), idx

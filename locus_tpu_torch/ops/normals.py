@@ -123,7 +123,9 @@ def estimate_normals_radius(
 ) -> PointCloud:
     """Fixed-radius PCA normals from one box-pruned moments pass (kernel
     B1). `radius` may be a 0-d tensor tied to the adaptive voxel leaf.
-    Points with fewer than `min_neighbors` in range get a zero normal."""
+    Points with fewer than `min_neighbors` in range get a zero normal.
+    A batched cloud (B, N) takes a (B,) radius, one per member, and runs
+    kernel B4 once for all members."""
     from locus_tpu_torch.ops.kernels.moments import radius_moments_pruned_comps
 
     count, _, cov_c = radius_moments_pruned_comps(cloud.xyz, cloud.xyz, radius)
@@ -135,9 +137,9 @@ def estimate_normals_radius(
     _, vx, vy, vz = (c.float() for c in smallest_eigenvector_sym3x3_comps(*(c.double() for c in cov_c)))
     vp = torch.as_tensor(viewpoint, dtype=torch.float32, device=cloud.xyz.device)
     dot = (
-        vx * (vp[0] - cloud.xyz[:, 0])
-        + vy * (vp[1] - cloud.xyz[:, 1])
-        + vz * (vp[2] - cloud.xyz[:, 2])
+        vx * (vp[0] - cloud.xyz[..., 0])
+        + vy * (vp[1] - cloud.xyz[..., 1])
+        + vz * (vp[2] - cloud.xyz[..., 2])
     )
     sign = torch.where(dot < 0.0, -1.0, 1.0)
     ok = cloud.mask & (count >= float(min_neighbors))

@@ -13,7 +13,7 @@ import os
 
 import torch
 
-from locus_tpu_torch.core.cloud import PAD_COORD, PointCloud
+from locus_tpu_torch.core.cloud import PAD_COORD, PointCloud, take_rows
 
 # Voxel coordinates are offset into [0, 2^20) per axis.
 _COORD_OFFSET = 1 << 19
@@ -35,17 +35,21 @@ def voxel_keys(xyz: torch.Tensor, mask: torch.Tensor, leaf) -> torch.Tensor:
 
 
 def _segment_offsets(is_new: torch.Tensor) -> torch.Tensor:
-    """(n+1,) start offsets of the n possible segments of a sorted key
-    run: segment k starts at the k-th run start; unused segments start
-    (and end) at n. Built without a host sync."""
-    n = is_new.shape[0]
-    seg = torch.cumsum(is_new.to(torch.int64), 0) - 1
-    # non-start lanes write to the extra slot n, then overwritten
+    """Start offsets of the segments of sorted key runs (..., n), flat over
+    the members: member b's n possible segments take offsets b*n .. b*n+n-1,
+    segment k starting at its k-th run start and the unused ones starting
+    (and ending) at the member's end (b+1)*n; one closing offset follows.
+    A member's sums thus land in rows b*n .. b*n+n-1 of the flat result.
+    Built without a host sync."""
+    n = is_new.shape[-1]
+    seg = torch.cumsum(is_new.to(torch.int64), -1) - 1
+    # non-start lanes write to the extra slot n, then cut off
     idx = torch.where(is_new, seg, n)
-    offsets = torch.full((n + 1,), n, dtype=torch.int64, device=is_new.device)
-    offsets.scatter_(0, idx, torch.arange(n, device=is_new.device))
-    offsets[n] = n
-    return offsets
+    offsets = torch.full(is_new.shape[:-1] + (n + 1,), n, dtype=torch.int64, device=is_new.device)
+    offsets.scatter_(-1, idx, torch.arange(n, device=is_new.device).expand(is_new.shape))
+    base = torch.arange(0, is_new.numel(), n, device=is_new.device).reshape(is_new.shape[:-1] + (1,))
+    end = torch.full((1,), is_new.numel(), dtype=torch.int64, device=is_new.device)
+    return torch.cat([(offsets[..., :n] + base).reshape(-1), end])
 
 
 def voxel_downsample(
@@ -58,6 +62,9 @@ def voxel_downsample(
 
     xyz, normals and intensity are averaged per voxel and normals are
     re-normalised. `leaf` may be a 0-d tensor (the runtime-adaptive leaf).
+    A cloud with a leading batch dimension takes a (B,) leaf, one per
+    member: each member is sorted along its own points (the int64 keys
+    along the last axis) and its segment sums are offset by member.
     `with_attributes=False` skips averaging normals and intensity and
     returns zeros for both; it is only the identity when those columns are
     zero, which `LOCUS_DEBUG_CHECKS` verifies eagerly.
@@ -65,6 +72,7 @@ def voxel_downsample(
     n = cloud.capacity
     cap = capacity if capacity is not None else n
     dev = cloud.xyz.device
+    lead = cloud.mask.shape[:-1]
     if not with_attributes and os.environ.get("LOCUS_DEBUG_CHECKS"):
         m = cloud.mask
         if bool(torch.any(cloud.normals[m] != 0)) or bool(torch.any(cloud.intensity[m] != 0)):
@@ -72,56 +80,58 @@ def voxel_downsample(
                 "voxel_downsample(with_attributes=False) called with non-zero "
                 "normals/intensity; the attributes would be dropped"
             )
+    leaf = torch.as_tensor(leaf, dtype=torch.float32, device=dev)[..., None]   # (..., 1)
     ij = torch.clamp(
-        torch.floor(cloud.xyz[:, :2] / leaf).to(torch.int64) + _PACK_OFFSET, 0, _PACK_MAX
+        torch.floor(cloud.xyz[..., :2] / leaf[..., None]).to(torch.int64) + _PACK_OFFSET, 0, _PACK_MAX
     )
     kz = torch.clamp(
-        torch.floor(cloud.xyz[:, 2] / leaf).to(torch.int64) + _PACK_OFFSET, 0, _PACK_MAX
+        torch.floor(cloud.xyz[..., 2] / leaf).to(torch.int64) + _PACK_OFFSET, 0, _PACK_MAX
     )
-    key_xy = ij[:, 0] * (_PACK_MAX + 1) + ij[:, 1]
+    key_xy = ij[..., 0] * (_PACK_MAX + 1) + ij[..., 1]
     key_xy = torch.where(cloud.mask, key_xy, (_PACK_MAX + 1) * (_PACK_MAX + 1))
     kz = torch.where(cloud.mask, kz, _PACK_MAX + 1)
     # one int64 key (key_xy, kz) in lexicographic order: kz < 2^16
     key = (key_xy << 16) | kz
 
-    w0 = cloud.mask.to(torch.float32)
-    cols = [w0[:, None], cloud.xyz * w0[:, None]]
+    w0 = cloud.mask.to(torch.float32)[..., None]
+    cols = [w0, cloud.xyz * w0]
     if with_attributes:
-        cols += [cloud.normals * w0[:, None], (cloud.intensity * w0)[:, None]]
-    payload = torch.cat(cols, dim=1)
-    key_s, order = torch.sort(key, stable=True)
-    payload_s = payload[order]
+        cols += [cloud.normals * w0, cloud.intensity[..., None] * w0]
+    payload = torch.cat(cols, dim=-1)
+    key_s, order = torch.sort(key, dim=-1, stable=True)
+    payload_s = take_rows(payload, order)
 
-    is_new = torch.ones((n,), dtype=torch.bool, device=dev)
-    is_new[1:] = key_s[1:] != key_s[:-1]
+    is_new = torch.ones(key.shape, dtype=torch.bool, device=dev)
+    is_new[..., 1:] = key_s[..., 1:] != key_s[..., :-1]
     # Per-segment sums in order along each segment (no float atomics, so
     # the result does not depend on the schedule).
     acc = torch.segment_reduce(
-        payload_s, "sum", offsets=_segment_offsets(is_new), axis=0, unsafe=True
-    )
+        payload_s.reshape(-1, payload.shape[-1]), "sum",
+        offsets=_segment_offsets(is_new), axis=0, unsafe=True,
+    ).reshape(payload.shape)
 
     # More voxels than `cap`: stride-sample the valid range so the kept
     # voxels cover the whole scene (a prefix would keep the lowest keys).
     if cap != n:
-        num_valid = torch.sum(acc[:, 0] > 0.0, dtype=torch.int32)
-        ar = torch.arange(cap, dtype=torch.int32, device=dev)
+        num_valid = torch.sum(acc[..., 0] > 0.0, dim=-1, dtype=torch.int32)[..., None]
+        ar = torch.arange(cap, dtype=torch.int32, device=dev).expand(lead + (cap,))
         strided = (ar.to(torch.float32) * (num_valid.to(torch.float32) / cap)).to(torch.int32)
         take = torch.where(num_valid <= cap, ar, torch.clamp(strided, max=n - 1))
-        acc = acc[take.to(torch.int64)]
+        acc = take_rows(acc, take.to(torch.int64))
 
-    counts = acc[:, 0]
+    counts = acc[..., 0]
     denom = torch.clamp(counts, min=1.0)
-    cx = acc[:, 1:4] / denom[:, None]
+    cx = acc[..., 1:4] / denom[..., None]
     valid = counts > 0.0
     if with_attributes:
-        nsum = acc[:, 4:7]
+        nsum = acc[..., 4:7]
         cn = nsum / torch.clamp(torch.linalg.norm(nsum, dim=-1, keepdim=True), min=1e-12)
-        normals = torch.where(valid[:, None], cn, 0.0)
-        intensity = torch.where(valid, acc[:, 7] / denom, 0.0)
+        normals = torch.where(valid[..., None], cn, 0.0)
+        intensity = torch.where(valid, acc[..., 7] / denom, 0.0)
     else:
         normals = torch.zeros_like(cx)
         intensity = torch.zeros_like(counts)
-    return PointCloud(torch.where(valid[:, None], cx, PAD_COORD), normals, intensity, valid)
+    return PointCloud(torch.where(valid[..., None], cx, PAD_COORD), normals, intensity, valid)
 
 
 def adaptive_leaf_update(

@@ -16,6 +16,13 @@ port raise NotImplementedError naming their ROADMAP item: LOAM features,
 the grid/random/outlier/radius filters and kNN normals (A11), NDT (A10),
 the voxel-hash map (A12), keyframes at map resolution and the GT-map
 bootstrap (A8 follow-ups), the in-graph space monitor (A14).
+
+Batching: `step` also advances B robots at once, on states stacked by
+`stack_states` (every leaf with a leading B) and per-robot inputs; it has
+the meaning the JAX package gives a vmap of its `step`. Each robot
+keeps its own pose, map, fusion buffers and adaptive leaf. No Python loop
+runs over the robots: every op and kernel launch serves all of them (the
+normals run kernel B4, the 1-NN passes kernel B3).
 """
 from __future__ import annotations
 
@@ -131,6 +138,40 @@ def init_state(cfg: LocusConfig, initial_pose: Optional[torch.Tensor] = None, de
     )
 
 
+def _map_tree(fn, *trees):
+    """Apply `fn` leafwise over (Named)tuples of tensors of one structure."""
+    head = trees[0]
+    if isinstance(head, tuple):
+        parts = [_map_tree(fn, *p) for p in zip(*trees)]
+        return type(head)(*parts) if hasattr(head, "_fields") else tuple(parts)
+    return fn(*trees)
+
+
+def stack_states(states) -> LocusState:
+    """Stack B single states into one batched state (every leaf gets a
+    leading B), the input of the batched `step`."""
+    return _map_tree(lambda *xs: torch.stack(xs), *states)
+
+
+def member(state, b: int):
+    """Robot b's single state (or output) out of a batched one."""
+    return _map_tree(lambda x: x[b], state)
+
+
+def init_states(
+    cfg: LocusConfig, initial_poses=None, num_robots: Optional[int] = None, device=None
+) -> LocusState:
+    """Batched initial state of B robots on `device` (None: the CUDA
+    device): `init_state_from_config` per robot, stacked. `initial_poses`
+    (B,4,4) or None (then `num_robots` of them at the configured pose)."""
+    dev = resolve_device(device)
+    if initial_poses is None:
+        poses = [None] * num_robots
+    else:
+        poses = [torch.as_tensor(p, dtype=torch.float32) for p in initial_poses]
+    return stack_states([init_state_from_config(cfg, p, device=dev) for p in poses])
+
+
 def init_state_from_config(
     cfg: LocusConfig, initial_pose: Optional[torch.Tensor] = None, device=None
 ) -> LocusState:
@@ -164,11 +205,13 @@ def step(
     cfg: LocusConfig,
     seq: Optional[torch.Tensor] = None,
 ) -> tuple[LocusState, StepOutput]:
-    """Process one merged sweep (base frame)."""
+    """Process one merged sweep (base frame); batched, one sweep per robot
+    (`raw_scan` (B, N), `stamp` and `seq` (B,))."""
     _check_supported(cfg)
     flat = cfg.b_is_flat_ground_assumption
     dev = raw_scan.xyz.device
     stamp = torch.as_tensor(stamp, dtype=torch.float32, device=dev)
+    mat = (..., None, None)   # a per-robot flag against (...,4,4)
 
     # -- drop-rate statistics (Locus.cc:401-423) ---------------------------
     stats = state.stats
@@ -195,7 +238,7 @@ def step(
     else:
         next_leaf = state.voxel_leaf
     open_space = state.open_space
-    xy_cross_section = torch.tensor(-1.0, device=dev)
+    xy_cross_section = torch.full_like(state.voxel_leaf, -1.0)
 
     with record_function("stage_prior"):
         sel = fusion.integrate_sensors(state.fuse, stamp, stamp, cfg.fusion, prev_stamp=state.previous_stamp)
@@ -221,12 +264,13 @@ def step(
     # On the first scan there is no map: keep the initial pose.
     have_map = state.map.num_keyframes > 0
     loc_state = localization.LocalizationState(
-        *(torch.where(have_map, new, old) for new, old in zip(meas.state, loc0))
+        *(torch.where(have_map.reshape(have_map.shape + (1,) * (new.dim() - have_map.dim())), new, old)
+          for new, old in zip(meas.state, loc0))
     )
     pose = torch.where(
-        have_map,
+        have_map[mat],
         loc_state.integrated,
-        torch.where(odo.performed, odo.state.integrated, loc0.integrated),
+        torch.where(odo.performed[mat], odo.state.integrated, loc0.integrated),
     )
 
     # -- velocity buffer (for MSW gating) ----------------------------------
@@ -236,10 +280,10 @@ def step(
     v_t = torch.where(first, 0.0, se3.translation_norm(inc) / dt)
     v_r = torch.where(first, 0.0, se3.rotation_angle(se3.rotation(inc)) / dt)
     vb = state.velocities
-    vi = (vb.ptr % vb.trans.shape[0]).to(torch.int64).reshape(1)
+    vi = (vb.ptr % vb.trans.shape[-1]).to(torch.int64)[..., None]
     vb = VelocityBuffer(
-        trans=vb.trans.index_copy(0, vi, v_t.reshape(1)),
-        rot=vb.rot.index_copy(0, vi, v_r.reshape(1)),
+        trans=vb.trans.scatter(-1, vi, v_t[..., None]),
+        rot=vb.rot.scatter(-1, vi, v_r[..., None]),
         ptr=vb.ptr + 1,
     )
 
@@ -271,23 +315,23 @@ def step(
             )
     else:
         new_map = state.map
-    last_kf_pose = torch.where(want_keyframe, pose, state.last_keyframe_pose)
+    last_kf_pose = torch.where(want_keyframe[mat], pose, state.last_keyframe_pose)
 
     # -- MSW refresh (Locus.cc:536-538; velocity gates lo_settings:47-62) --
     if cfg.mapper.b_enable_msw:
         pos = se3.translation(pose)
         moved_msw = (
-            torch.linalg.norm(pos - new_map.last_refresh_position)
+            se3.norm(pos - new_map.last_refresh_position)
             > cfg.mapper.translation_threshold_msw
         )
-        slow = (torch.mean(vb.trans) < cfg.mapper.translational_velocity_threshold) & (
-            torch.mean(vb.rot) < cfg.mapper.rotational_velocity_threshold
+        slow = (torch.mean(vb.trans, dim=-1) < cfg.mapper.translational_velocity_threshold) & (
+            torch.mean(vb.rot, dim=-1) < cfg.mapper.rotational_velocity_threshold
         )
         want_refresh = moved_msw & slow & (new_map.num_keyframes > 0)
         with record_function("stage_msw"):
             new_map = mp_impl.refresh_msw(new_map, pos, cfg.mapper, enabled=want_refresh)
     else:
-        want_refresh = torch.tensor(False, device=dev)
+        want_refresh = torch.zeros_like(want_keyframe)
 
     stats = stats._replace(
         scan_count=stats.scan_count + 1,

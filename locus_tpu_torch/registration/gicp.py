@@ -9,8 +9,18 @@ Gauss-Newton steps on the SE(3) tangent with M and the pairs fixed.
 
 Loop control: the JAX package runs the outer loop as a `lax.while_loop`
 on a device-side test and the final re-lookup under `lax.cond`. Here both
-tests are read on the host (one `.item()` per outer iteration), so the
+tests are read on the host (one read per outer iteration), so the
 iteration count equals JAX's and no NN pass is launched for nothing.
+
+Batching: source, target and guess may carry one leading batch dimension
+(the batched replay), with the meaning vmap gives the JAX function.
+The outer loop runs while any member is still iterating; a member that has
+stopped keeps its carry (`torch.where`), so its iterations, transform and
+fitness equal its single run. The re-lookup runs when any member needs it
+and is selected per member. Each outer iteration launches the 1-NN kernel
+once for all members (B3; B2 on the single path). The Gauss-Newton sums
+are pairwise (`tree_sum`) and the small products written out
+(`se3.matmul`), so that a member rounds exactly as its single run does.
 
 The `recompute` and `adaptive` covariance modes and caller-supplied
 covariances come with ROADMAP item A11 (they need kNN) and raise here.
@@ -22,7 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from locus_tpu_torch.config import RegistrationConfig
-from locus_tpu_torch.core.cloud import PointCloud
+from locus_tpu_torch.core.cloud import PointCloud, take_rows
 from locus_tpu_torch.geometry import se3
 from locus_tpu_torch.ops.kernels.nn import (
     SCAN_BT,
@@ -30,7 +40,7 @@ from locus_tpu_torch.ops.kernels.nn import (
     chunk_boxes,
     nearest_bounded_pre,
 )
-from locus_tpu_torch.utils.linalg import chol_solve
+from locus_tpu_torch.utils.linalg import chol_solve, sum_last, tree_sum
 
 
 class GICPResult(NamedTuple):
@@ -47,8 +57,8 @@ def _sym3_two_disks(a: torch.Tensor, b: torch.Tensor, epsilon: float):
     """Components of (I - k a a^T) + (I - k b b^T), k = 1-eps: the sum of
     the rotated source disk and the target disk covariances."""
     k = 1.0 - epsilon
-    ax, ay, az = a[:, 0], a[:, 1], a[:, 2]
-    bx, by, bz = b[:, 0], b[:, 1], b[:, 2]
+    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
+    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
     return (
         2.0 - k * (ax * ax + bx * bx),
         -k * (ax * ay + bx * by),
@@ -83,10 +93,10 @@ def _gauss_newton_step_comps(p_cur, q, M, w, lm_lambda):
     """Component-form weighted GN step for min sum_i w_i r^T M r with
     r = exp(xi) p - q and J = [I | -skew(p)]. The 21 unique entries of
     H = sum J^T M J and the 6 of g are column sums of one (N, 27) stack."""
-    px, py, pz = p_cur[:, 0], p_cur[:, 1], p_cur[:, 2]
-    rx = px - q[:, 0]
-    ry = py - q[:, 1]
-    rz = pz - q[:, 2]
+    px, py, pz = p_cur[..., 0], p_cur[..., 1], p_cur[..., 2]
+    rx = px - q[..., 0]
+    ry = py - q[..., 1]
+    rz = pz - q[..., 2]
     m00, m01, m02, m11, m12, m22 = (m * w for m in M)
 
     # B = M @ skew(p)
@@ -115,23 +125,23 @@ def _gauss_newton_step_comps(p_cur, q, M, w, lm_lambda):
     gw1 = pz * mr0 - px * mr2
     gw2 = -py * mr0 + px * mr1
 
-    s = torch.stack(
+    s = tree_sum(torch.stack(
         [m00, m01, m02, m11, m12, m22,
          b00, b01, b02, b10, b11, b12, b20, b21, b22,
          c00, c01, c02, c11, c12, c22,
          mr0, mr1, mr2, gw0, gw1, gw2],
-        dim=1,
-    ).sum(dim=0)
-    H_tt = s[[0, 1, 2, 1, 3, 4, 2, 4, 5]].view(3, 3)
-    H_tw = -s[6:15].view(3, 3)
-    H_ww = s[[15, 16, 17, 16, 18, 19, 17, 19, 20]].view(3, 3)
-    g = s[21:27]
+        dim=-1,
+    ))
+    H_tt = s[..., [0, 1, 2, 1, 3, 4, 2, 4, 5]].unflatten(-1, (3, 3))
+    H_tw = -s[..., 6:15].unflatten(-1, (3, 3))
+    H_ww = s[..., [15, 16, 17, 16, 18, 19, 17, 19, 20]].unflatten(-1, (3, 3))
+    g = s[..., 21:27]
     H = torch.cat(
-        [torch.cat([H_tt, H_tw], dim=1), torch.cat([H_tw.T, H_ww], dim=1)], dim=0
+        [torch.cat([H_tt, H_tw], dim=-1), torch.cat([H_tw.transpose(-1, -2), H_ww], dim=-1)], dim=-2
     )
-    H = H + lm_lambda * torch.eye(6, dtype=H.dtype, device=H.device) * torch.clamp(
-        torch.trace(H) / 6.0, min=1.0
-    ) * 1e-6
+    trace = sum_last(torch.diagonal(H, dim1=-2, dim2=-1))
+    ridge = lm_lambda * torch.clamp(trace / 6.0, min=1.0) * 1e-6
+    H = H + torch.eye(6, dtype=H.dtype, device=H.device) * ridge[..., None, None]
     return -chol_solve(H, g)
 
 
@@ -142,7 +152,7 @@ def _scaled_delta(T_prev: torch.Tensor, T_new: torch.Tensor, cfg: RegistrationCo
     diff = torch.abs(T_prev - T_new)
     scale = torch.full((4, 4), 1.0 / cfg.tf_epsilon, dtype=diff.dtype, device=diff.device)
     scale[:3, :3] = 1.0 / cfg.rotation_epsilon
-    return torch.max(diff * scale)
+    return torch.amax(diff * scale, dim=(-2, -1))
 
 
 def gicp_register(
@@ -155,7 +165,9 @@ def gicp_register(
 ) -> GICPResult:
     """Align `source` to `target`; returns the source->target transform.
     The guess pre-warps the source; the iterated transform starts at
-    identity and the result is T_iter @ guess."""
+    identity and the result is T_iter @ guess. With a leading batch
+    dimension on the clouds (and the guess), each member is aligned as its
+    own single call would align it."""
     mode = cfg.covariance_mode
     if cfg.recompute_covariances and mode == "normals":
         mode = "recompute"
@@ -164,17 +176,18 @@ def gicp_register(
             f"GICP covariance mode {mode!r} / explicit covariances: ROADMAP A11"
         )
     dev = source.xyz.device
+    lead = source.mask.shape[:-1]
     if guess is None:
         guess = se3.identity(dev)
 
     src0 = se3.transform_points(guess, source.xyz)
-    src0 = torch.where(source.mask[:, None], src0, source.xyz)  # keep sentinels
+    src0 = torch.where(source.mask[..., None], src0, source.xyz)  # keep sentinels
     src0_normals = se3.rotate_vectors(guess, source.normals)
     corr_dist2 = cfg.corr_dist * cfg.corr_dist
 
     # The target is loop-invariant: build its operand and chunk boxes once.
     t_aug = build_nn_target(target.xyz, bt=SCAN_BT)
-    c_min, c_max = chunk_boxes(target.xyz, target.mask, t_aug.shape[0], bt=SCAN_BT)
+    c_min, c_max = chunk_boxes(target.xyz, target.mask, t_aug.shape[-2], bt=SCAN_BT)
 
     def nearest_fn(p):
         d2, j = nearest_bounded_pre(
@@ -182,49 +195,62 @@ def gicp_register(
         )
         return torch.where(torch.isfinite(d2), d2, 1e12), j
 
+    def sel(active, new, old):
+        """Per member: `new` where still iterating, else the kept `old`."""
+        return torch.where(active.reshape(active.shape + (1,) * (new.dim() - active.dim())), new, old)
+
     n_src = source.capacity
-    T = se3.identity(dev)
-    it = 0
-    delta = torch.tensor(float("inf"), device=dev)
-    fitness = torch.tensor(float("inf"), device=dev)
-    ncorr = torch.tensor(0, dtype=torch.int32, device=dev)
-    j_fin = torch.zeros((n_src,), dtype=torch.int64, device=dev)
-    d2_fin = torch.full((n_src,), float("inf"), device=dev)
-    while it < cfg.iterations and bool(delta >= 1.0):
+    T = se3.identity(dev).expand(lead + (4, 4))
+    it = torch.zeros(lead, dtype=torch.int32, device=dev)
+    delta = torch.full(lead, float("inf"), device=dev)
+    fitness = torch.full(lead, float("inf"), device=dev)
+    ncorr = torch.zeros(lead, dtype=torch.int32, device=dev)
+    j_fin = torch.zeros(lead + (n_src,), dtype=torch.int64, device=dev)
+    d2_fin = torch.full(lead + (n_src,), float("inf"), device=dev)
+    while True:
+        active = (it < cfg.iterations) & (delta >= 1.0)
+        if not bool(active.any()):
+            break
         p = se3.transform_points(T, src0)
         d2, j = nearest_fn(p)
-        w = (source.mask & target.mask[j] & (d2 <= corr_dist2)).to(torch.float32)
-        q = target.xyz[j]
+        w = (source.mask & take_rows(target.mask, j) & (d2 <= corr_dist2)).to(torch.float32)
+        q = take_rows(target.xyz, j)
         # A = C2 + R C1 R^T = (I - k m m^T) + (I - k (Rn)(Rn)^T)
-        A = _sym3_two_disks(se3.rotate_vectors(T, src0_normals), target.normals[j], cfg.gicp_epsilon)
+        A = _sym3_two_disks(
+            se3.rotate_vectors(T, src0_normals), take_rows(target.normals, j), cfg.gicp_epsilon
+        )
         M = _inv_sym3(A)
         T_new = T
         for _ in range(cfg.inner_iterations):
             p_cur = se3.transform_points(T_new, src0)
-            p_cur = torch.where(source.mask[:, None], p_cur, q)  # zero-residual pads
+            p_cur = torch.where(source.mask[..., None], p_cur, q)  # zero-residual pads
             dx = _gauss_newton_step_comps(p_cur, q, M, w, cfg.levenberg_lambda)
             T_new = se3.compose(se3.se3_exp(dx), T_new)
         T_new = se3.make_transform(se3.orthonormalize(se3.rotation(T_new)), se3.translation(T_new))
-        delta = _scaled_delta(T, T_new, cfg)
-        wsum = torch.sum(w)
-        fitness = torch.sum(d2 * w) / torch.clamp(wsum, min=1.0)
-        ncorr = wsum.to(torch.int32)
-        j_fin, d2_fin = j, d2
-        T = T_new
-        it += 1
+        wsum = tree_sum(w, dim=-1)
+        delta = sel(active, _scaled_delta(T, T_new, cfg), delta)
+        fitness = sel(active, tree_sum(d2 * w, dim=-1) / torch.clamp(wsum, min=1.0), fitness)
+        ncorr = sel(active, wsum.to(torch.int32), ncorr)
+        j_fin = sel(active, j, j_fin)
+        d2_fin = sel(active, d2, d2_fin)
+        T = sel(active, T_new, T)
+        it = it + active.to(torch.int32)
 
     converged = delta < 1.0
     # Exited on the iteration cap: the carried pairs may be stale, so
     # re-search at the final pose (PointCloudLocalization.cc:327-336).
-    if cfg.final_correspondence_relookup and not bool(converged):
+    relook = ~converged
+    if cfg.final_correspondence_relookup and bool(relook.any()):
         p_fin = se3.transform_points(T, src0)
-        p_fin = torch.where(source.mask[:, None], p_fin, src0)
-        d2_fin, j_fin = nearest_fn(p_fin)
-    corr_mask = source.mask & target.mask[j_fin] & (d2_fin <= corr_dist2)
+        p_fin = torch.where(source.mask[..., None], p_fin, src0)
+        d2_r, j_r = nearest_fn(p_fin)
+        d2_fin = sel(relook, d2_r, d2_fin)
+        j_fin = sel(relook, j_r, j_fin)
+    corr_mask = source.mask & take_rows(target.mask, j_fin) & (d2_fin <= corr_dist2)
     return GICPResult(
         transform=se3.compose(T, guess),
         converged=converged,
-        iterations=torch.tensor(it, dtype=torch.int32, device=dev),
+        iterations=it,
         fitness=fitness,
         correspondences=j_fin,
         corr_mask=corr_mask,

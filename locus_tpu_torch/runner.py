@@ -3,12 +3,17 @@ scan it packs the raw scan to a fixed shape, pushes the sensor windows
 into the device-resident fusion buffers and runs one pipeline step, then
 collects the trajectory and diagnostics on the host.
 
-This slice ports `pack_scan`, the replay step and `run_sequence` without
-the SLAM backend (ROADMAP A14); batched and scanned replays are A15.
+Ported: `pack_scan`, the replay step, `run_sequence` (without the SLAM
+backend, ROADMAP A14), and the prepacked replays: `pack_sequence`,
+`stack_packed`, `make_scan_replay` (one sequence) and
+`make_batched_replay` (B sequences, one batched step per tick). The JAX
+package runs those as one compiled `lax.scan`; here a host loop steps
+through the prepacked device tensors.
 """
 from __future__ import annotations
 
 import time
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -19,7 +24,7 @@ from locus_tpu_torch.config import LocusConfig
 from locus_tpu_torch.core.cloud import PAD_COORD, PointCloud
 from locus_tpu_torch.io.dataset import Sequence, sensor_windows_for_scan
 from locus_tpu_torch.metrics import RateReport
-from locus_tpu_torch.ops.dispatch import resolve_device
+from locus_tpu_torch.ops.dispatch import no_kernels, resolve_device
 
 
 def pack_scan(xyz: np.ndarray, valid: np.ndarray, capacity: int):
@@ -48,9 +53,9 @@ def replay_step(state, scan_xyz, scan_mask, stamp, imu_s, imu_q, odom_s, odom_p,
     fuse = fusion.push_odom_batch(fuse, odom_s, odom_p)
     state = state._replace(fuse=fuse)
     raw = PointCloud(
-        torch.where(scan_mask[:, None], scan_xyz, PAD_COORD),
+        torch.where(scan_mask[..., None], scan_xyz, PAD_COORD),
         torch.zeros_like(scan_xyz),
-        torch.zeros(scan_xyz.shape[0], dtype=torch.float32, device=scan_xyz.device),
+        torch.zeros(scan_mask.shape, dtype=torch.float32, device=scan_xyz.device),
         scan_mask,
     )
     return pipeline.step(state, raw, stamp, cfg, seq=seq_id)
@@ -103,3 +108,97 @@ def run_sequence(
     if return_state:
         return poses, outputs, report, state
     return poses, outputs, report
+
+
+# The order of `replay_step`'s inputs after the state.
+PACKED_KEYS = ("scan_xyz", "scan_mask", "stamps", "imu_s", "imu_q", "odom_s", "odom_p", "seq_ids")
+
+
+def pack_sequence(seq: Sequence, cfg: LocusConfig, max_scans: Optional[int] = None, device=None):
+    """Prepack a whole sequence into fixed-shape device tensors on `device`
+    (None: the CUDA device): scan_xyz (T,cap,3), scan_mask (T,cap), stamps
+    (T,), imu windows (T,K,...), odom windows (T,Ko,...), seq_ids (T,)."""
+    dev = resolve_device(device)
+    n = len(seq) if max_scans is None else min(max_scans, len(seq))
+    cap = cfg.raw_scan_capacity
+    xyzs = np.zeros((n, cap, 3), np.float32)
+    masks = np.zeros((n, cap), bool)
+    imu_ss, imu_qs, odo_ss, odo_ps = [], [], [], []
+    for i in range(n):
+        xyzs[i], masks[i] = pack_scan(seq.scans[i], seq.scan_valid[i], cap)
+        (imu_s, imu_q), (odom_s, odom_p) = sensor_windows_for_scan(seq, i)
+        imu_ss.append(imu_s)
+        imu_qs.append(imu_q)
+        odo_ss.append(odom_s)
+        odo_ps.append(odom_p)
+    host = dict(
+        scan_xyz=xyzs, scan_mask=masks, stamps=np.asarray(seq.stamps[:n], np.float32),
+        imu_s=np.stack(imu_ss), imu_q=np.stack(imu_qs),
+        odom_s=np.stack(odo_ss), odom_p=np.stack(odo_ps),
+        seq_ids=np.arange(n, dtype=np.int32),
+    )
+    return {k: torch.as_tensor(v).to(dev) for k, v in host.items()}
+
+
+def stack_packed(packed_list):
+    """Stack per-sequence packed dicts for `make_batched_replay`: tensors
+    become (T, B, ...), the scan axis first and the batch axis second."""
+    return {k: torch.stack([p[k] for p in packed_list], dim=1) for k in packed_list[0]}
+
+
+def _replay(cfg: LocusConfig, state, packed, report: Optional[RateReport]):
+    """Step through the T scans of `packed`; returns (state, (poses,
+    condition numbers, map sizes)) stacked over the scans. With a report,
+    each scan is timed up to a device synchronisation."""
+    poses, conds, sizes = [], [], []
+    dev = packed["scan_xyz"].device
+    for i in range(packed["scan_xyz"].shape[0]):
+        t0 = time.perf_counter()
+        state, out = replay_step(state, *(packed[k][i] for k in PACKED_KEYS), cfg=cfg)
+        if report is not None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            report.add(time.perf_counter() - t0)
+        poses.append(out.pose)
+        conds.append(out.condition_number)
+        sizes.append(out.map_size)
+    return state, (torch.stack(poses), torch.stack(conds), torch.stack(sizes))
+
+
+def make_scan_replay(cfg: LocusConfig, mesh=None):
+    """The replay of one prepacked sequence (counterpart of the JAX
+    `make_scan_replay`): replay(state, packed, report=None) -> (state,
+    (poses (T,4,4), cond (T,), map_sizes (T,))). It is the reference the
+    batched replay is held against. `mesh` (the sharded map) is ROADMAP
+    A16; the JAX `unroll` is a `lax.scan` notion with no counterpart."""
+    if mesh is not None:
+        raise NotImplementedError("make_scan_replay(mesh=): the sharded map is ROADMAP A16")
+
+    def replay(state, packed, report: Optional[RateReport] = None):
+        return _replay(cfg, state, packed, report)
+
+    return replay
+
+
+def make_batched_replay(cfg: LocusConfig, mesh=None, use_pallas: Optional[bool] = None):
+    """Multi-sequence batch replay (counterpart of the JAX
+    `make_batched_replay`, a vmap of the scan replay): replay(states,
+    packed, report=None) -> (states, (poses (T,B,4,4), cond (T,B),
+    map_sizes (T,B))) on states stacked by `pipeline.stack_states` and
+    inputs stacked by `stack_packed`. One batched step per tick: every op
+    and kernel launch serves all B robots (kernels B3 and B4).
+
+    `use_pallas=False` runs the kernels' plain PyTorch versions
+    (`dispatch.no_kernels()`, the ablation); None and True run the kernels
+    on the card. `mesh` (a sharded batch and map) is ROADMAP A16; the JAX
+    `unroll` is a `lax.scan` notion with no counterpart. With a report,
+    each tick is timed up to a device synchronisation."""
+    if mesh is not None:
+        raise NotImplementedError("make_batched_replay(mesh=): the sharded map is ROADMAP A16")
+
+    def replay(states, packed, report: Optional[RateReport] = None):
+        ctx = no_kernels() if use_pallas is False else contextlib.nullcontext()
+        with ctx:
+            return _replay(cfg, states, packed, report)
+
+    return replay

@@ -45,7 +45,7 @@ def assert_maps_match(t, j):
 
 def _both(cfg_kw):
     jc, tc = JMC(**cfg_kw), TMC(**cfg_kw)
-    return jc, tc, jkm.init_map(jc), tkm.init_map(tc)
+    return jc, tc, jkm.init_map(jc), tkm.init_map(tc, device="cpu")
 
 
 def test_init_map_matches():

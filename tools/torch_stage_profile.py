@@ -14,7 +14,12 @@ host, so the same scans are also timed untraced), and the top kernels
 and host ops.
 
     python tools/torch_stage_profile.py [--scans 48] [--traced 8]
-        [--out chiprun_out/stage_profile.json]
+        [--robots 1] [--out chiprun_out/stage_profile.json]
+
+With --robots B > 1 it profiles the batched step instead: B robots, each
+on its own tunnel (chip_smoke.py's batched phase: steps 0.30, 0.35, ...,
+seeds 0, 1, ...), one batched step per tick; every "per scan" figure is
+then per tick of all B robots.
 
 Imports neither JAX nor locus_tpu; needs a CUDA device.
 """
@@ -62,6 +67,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scans", type=int, default=48)
     ap.add_argument("--traced", type=int, default=8, help="scans traced at the end of the replay")
+    ap.add_argument("--robots", type=int, default=1, help="robots of the batched step (1: the single step)")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "stage_profile.json"))
     args = ap.parse_args()
 
@@ -78,11 +84,20 @@ def main() -> int:
 
     dev = torch.device("cuda")
     cfg = production_config(cfg_mod)
-    seq = make_tunnel_sequence(num_scans=args.scans, azimuth_steps=1800, step=0.35, seed=0)
-    state = pipeline.init_state_from_config(
-        cfg, initial_pose=torch.as_tensor(seq.gt_poses[0], dtype=torch.float32), device=dev
-    )
-    inputs = [runner.scan_inputs(seq, i, cfg, dev) for i in range(args.scans)]
+    if args.robots == 1:
+        seq = make_tunnel_sequence(num_scans=args.scans, azimuth_steps=1800, step=0.35, seed=0)
+        state = pipeline.init_state_from_config(
+            cfg, initial_pose=torch.as_tensor(seq.gt_poses[0], dtype=torch.float32), device=dev
+        )
+        inputs = [runner.scan_inputs(seq, i, cfg, dev) for i in range(args.scans)]
+    else:
+        seqs = [make_tunnel_sequence(num_scans=args.scans, azimuth_steps=1800, step=0.30 + 0.05 * b, seed=b)
+                for b in range(args.robots)]
+        state = pipeline.init_states(cfg, [s.gt_poses[0] for s in seqs], device=dev)
+        inputs = [
+            tuple(torch.stack(x) for x in zip(*(runner.scan_inputs(s, i, cfg, dev) for s in seqs)))
+            for i in range(args.scans)
+        ]
     first = args.scans - args.traced
     for i in range(first):
         state, _ = runner.replay_step(state, *inputs[i], cfg=cfg)
@@ -103,7 +118,7 @@ def main() -> int:
         t0 = time.perf_counter()
         for i in range(first, args.scans):
             state, out = runner.replay_step(state, *inputs[i], cfg=cfg)
-            iters.append((int(out.odom_iterations), int(out.loc_iterations)))
+            iters.append((out.odom_iterations.tolist(), out.loc_iterations.tolist()))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     n = args.traced
@@ -128,6 +143,7 @@ def main() -> int:
     sites = _wait_sites(prof.events(), SYNC_OPS + ("cudaMemcpyAsync",), cuda, n)
     result = {
         "device": torch.cuda.get_device_name(0),
+        "robots": args.robots,
         "traced_scans": n,
         "untraced_wall_ms_per_scan": untraced_s * 1e3 / n,
         "wall_ms_per_scan": wall_s * 1e3 / n,
@@ -152,7 +168,7 @@ def main() -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
     print(json.dumps({k: result[k] for k in (
-        "device", "untraced_wall_ms_per_scan", "wall_ms_per_scan", "device_busy_ms_per_scan", "device_idle_share_untraced",
+        "device", "robots", "untraced_wall_ms_per_scan", "wall_ms_per_scan", "device_busy_ms_per_scan", "device_idle_share_untraced",
         "kernel_launches_per_scan", "host_syncs_per_scan", "stages")}))
     return 0
 
