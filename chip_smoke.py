@@ -17,7 +17,10 @@ Phases, each printing one JSON line:
                B4's), against its plain version on the same inputs, timed
                with CUDA events beside the plain version, a one-call
                PyTorch yardstick where one exists, and the bound from this
-               run's visited pairs
+               run's visited pairs and the launch floor of the kernel's
+               grid (an empty kernel); B2/B3 are held to the plain
+               version's bits. One informational row, B3 map at B = 16
+               (the four robots' inputs stacked four times), lies on no path
  5. pipeline   the 48-scan production replay through runner.run_sequence
                with launch counts reset just before and read just after;
                scans/s over the last 32 scans and ATE against ground truth
@@ -41,10 +44,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores and HBM bandwidth, the roofline of both kernels.
-PEAK_FP32_OPS = 67e12
+# H100 SXM published peaks (NVIDIA data sheet), the roofline of both kernel
+# families. fp32 outside the tensor cores: the sheet's 67e12/s counts an FMA
+# as two operations; both families issue their multiplies and adds unfused
+# (__fmul_rn/__fadd_rn, so that they round as the plain versions do), and
+# an unfused multiply, add or compare issues at half that rate. HBM bandwidth.
+PEAK_FP32_OPS = 33.5e12
 PEAK_BYTES = 3.35e12
+MOMENT_THREADS = 256  # threads of a block of the moments kernels (csrc/moments.cu)
 
 SCANS, REF_SCANS, RATE_WINDOW = 48, 8, 32
 ROBOTS, ROBOT_SCANS, TICK_WINDOW = 4, 24, 16
@@ -55,7 +62,6 @@ BATCHED_LIMIT_M = 1e-3  # each robot of the batched replay against its single re
 # the kernels each replay launches: B1, B2 (scan, map); B4, B3 (scan, map)
 SINGLE_PATH = ("moments_visits", "nn_visits_scan", "nn_visits_map")
 BATCHED_PATH = ("moments_visits_batched", "nn_visits_batched_scan", "nn_visits_batched_map")
-D2_TOL = 1e-5       # kernel vs plain, squared distance of the winner [m^2]
 MOMENT_RTOL = 1e-6  # kernel vs plain, raw moment sums (float64 sums: exact)
 
 
@@ -98,47 +104,83 @@ def bound_ms(ops, nbytes):
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_nn(torch, tnn, name, query, t_aug, target, c_min, c_max, radius, bt, library):
-    """Kernel B2 (one member) or B3 (a leading batch) against its plain
-    version on one main-path call."""
-    from locus_tpu_torch.core.cloud import take_rows
+def floor_ms(torch, build, grid, threads):
+    """Device time of the empty kernel with `grid` and `threads` a block."""
+    return device_time_ms(torch, lambda: build.launch_empty(grid, threads, torch.cuda.current_stream().cuda_stream))
 
-    batched = query.dim() == 3
+
+def nn_grid(torch, tnn, q, t_aug, bt):
+    """The (tile parts, members, target splits) grid of a B2/B3 launch."""
+    batch = q.shape[0] if q.dim() == 3 else 1
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return tnn.launch_grid(batch, q.shape[-2] // tnn.BQ, t_aug.shape[-2] // bt, bt, sms)
+
+
+def nn_cases(torch, tnn, cfg, pc, state, suffix):
+    """The B2 (scan, map) calls of one robot's step, or the B3 ones of a
+    batch's, on the reference run's state: (name, bt, radius, (cnt, ids, q,
+    t_aug), query, target) each, the query and target coordinates for the
+    PyTorch yardstick. A batch adds the informational B3 map at B = 16:
+    its members stacked four times."""
+    from locus_tpu_torch.core.cloud import PAD_COORD
+
+    scan_ref, mp = state.odom.reference, state.map
+    q_scan = torch.where(pc.mask[..., None], pc.xyz, PAD_COORD)
+    world = pc.transform(state.loc.integrated).xyz
+    scan_aug = tnn.build_nn_target(scan_ref.xyz, bt=tnn.SCAN_BT)
+    scan_box = tnn.chunk_boxes(scan_ref.xyz, scan_ref.mask, scan_aug.shape[-2], bt=tnn.SCAN_BT)
+    cases = []
+    for kind, query, t_aug, target, (c_min, c_max), radius, bt in (
+        ("scan", q_scan, scan_aug, scan_ref.xyz, scan_box, cfg.odometry.corr_dist, tnn.SCAN_BT),
+        ("map", world, mp.nn_aug, mp.cloud.xyz, (mp.chunk_min, mp.chunk_max), cfg.mapper.ann_search_radius, tnn.BT),
+    ):
+        cnt, ids = tnn.visit_lists(*tnn.tile_boxes(query), c_min, c_max, radius * radius)
+        cases.append((f"nn_visits{suffix}_{kind}", bt, radius, (cnt, ids, tnn.pack_query(query), t_aug), query, target))
+    if suffix:
+        name, bt, radius, args, query, target = cases[-1]
+        cases.append((f"{name}_b16", bt, radius, tuple(x.repeat((4,) + (1,) * (x.dim() - 1)) for x in args),
+                      query.repeat(4, 1, 1), target.repeat(4, 1, 1)))
+    return cases
+
+
+def check_nn(torch, tnn, build, name, bt, radius, args, query, target):
+    """Kernel B2 (one member) or B3 (a leading batch) against its plain
+    version on one call: score bits and index on every row."""
+    cnt, ids, q, t_aug = args
+    batched = q.dim() == 3
     run, counts = (tnn.nn_visits_batched, tnn.batched_launches) if batched else (tnn.nn_visits, tnn.launches)
-    tmin, tmax = tnn.tile_boxes(query)
-    cnt, ids = tnn.visit_lists(tmin, tmax, c_min, c_max, radius * radius)
-    q = tnn.pack_query(query)
     before = dict(counts)
-    ks, ki = run(cnt, ids, q, t_aug, bt)
+    ks, ki = run(*args, bt)
     torch.cuda.synchronize()
-    ps, pi = tnn.nn_visits_plain(cnt, ids, q, t_aug, bt)
-    counts.update(before)  # comparison launches are not main-path launches
-    n, m = query.shape[-2], target.shape[-2]
-    valid = torch.all(query.abs() < 1e7, dim=-1)
-    ki64 = ki[..., :n].long().clamp(0, m - 1)
-    pi64 = pi[..., :n].long().clamp(0, m - 1)
-    kd2 = ((query - take_rows(target, ki64)) ** 2).sum(-1)
-    pd2 = ((query - take_rows(target, pi64)) ** 2).sum(-1)
-    inside = valid & (pd2 <= radius * radius)
-    err = float((kd2 - pd2)[inside].abs().max()) if bool(inside.any()) else 0.0
-    idx_diff = int((inside & (ki64 != pi64)).sum())
-    ok = err <= D2_TOL
+    ps, pi = tnn.nn_visits_plain(*args, bt)
+    differ = ks != ps
+    score_bits = int((ks.view(torch.int32) != ps.view(torch.int32)).sum())
+    index_diff = int((ki != pi).sum())
+    err = float((ks - ps)[differ].abs().max()) if bool(differ.any()) else 0.0
+    ok = score_bits == 0 and index_diff == 0
     visited = int(cnt.sum()) * tnn.BQ * bt
-    ms = device_time_ms(torch, lambda: run(cnt, ids, q, t_aug, bt))
-    counts.update(before)
-    plain_ms = device_time_ms(torch, lambda: tnn.nn_visits_plain(cnt, ids, q, t_aug, bt), reps=5)
-    lib_ms = device_time_ms(torch, library, reps=5) if library is not None else None
+    ms = device_time_ms(torch, lambda: run(*args, bt))
+    counts.update(before)  # comparison launches are not main-path launches
+    plain_ms = device_time_ms(torch, lambda: tnn.nn_visits_plain(*args, bt), reps=5)
+    try:
+        lib_ms = device_time_ms(torch, lambda: torch.cdist(query, target).min(-1), reps=5)
+    except torch.cuda.OutOfMemoryError:
+        lib_ms = None  # the (B, n, m) distance matrix does not fit on the card
+    grid = nn_grid(torch, tnn, q, t_aug, bt)
     nbytes = (q.numel() + t_aug.numel() + cnt.numel() + ids.numel()) * 4 + q.shape[:-1].numel() * 8
+    # 7 unfused operations per visited pair: 3 multiplies, 3 adds, a compare
     b, by = bound_ms(visited * 7, nbytes)
+    valid = torch.all(query.abs() < 1e7, dim=-1)
     return ok, {
         "name": name, "route": "cuda", "source": "locus_tpu_torch/csrc/nn.cu",
         "replaces": "locus_tpu/ops/pallas/nn.py:256" if batched else "locus_tpu/ops/pallas/nn.py:208",
-        "batch": query.shape[0] if batched else 1,
-        "queries": n, "targets": m, "bt": bt, "radius": float(radius),
-        "visited_pairs": visited, "max_abs_err": err, "index_mismatches_within_tol": idx_diff,
-        "tolerance": f"winner d2 within {D2_TOL} m^2",
+        "batch": q.shape[0] if batched else 1, "grid": list(grid),
+        "queries": query.shape[-2], "targets": target.shape[-2], "bt": bt, "radius": float(radius),
+        "visited_pairs": visited, "max_abs_err": err, "rows": q.shape[:-1].numel(),
+        "score_bit_mismatches": score_bits, "index_mismatches": index_diff,
+        "tolerance": "score bits and index equal on every row",
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
-        "valid_queries": int(valid.sum()), "found": int(inside.sum()),
+        "floor_ms": floor_ms(torch, build, grid, tnn.THREADS), "valid_queries": int(valid.sum()),
     }
 
 
@@ -161,7 +203,7 @@ MOMENT_SOURCES = {
 }
 
 
-def check_moments(torch, tmom, query, radius):
+def check_moments(torch, tmom, build, query, radius):
     """Kernel B1 (one member) or B4 (a leading batch, one radius each)
     against its plain version on one main-path call, then the dense kernel
     B5 (B6) against its plain version on the same inputs, with the counts
@@ -210,6 +252,7 @@ def check_moments(torch, tmom, query, radius):
             "max_abs_err": err, "count_mismatches": count_mismatches,
             "tolerance": f"sums rtol {MOMENT_RTOL}, counts equal",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": None,
+            "floor_ms": floor_ms(torch, build, (qq.shape[-2] // tmom.BQ, query.shape[0] if batched else 1, 1), MOMENT_THREADS),
         })
     for c, v in before.items():
         setattr(tmom, c, v)  # comparison launches are not main-path launches
@@ -243,31 +286,15 @@ def scan_for_checks(torch, cfg, seqs, i, leaf, dev):
     return voxel.voxel_downsample(pc, leaf, capacity=cfg.scan_capacity, with_attributes=False)
 
 
-def kernel_checks(torch, tnn, tmom, cfg, pc, state, suffix):
-    """B1/B5 and B2 (scan, map) on one robot's inputs, or B4/B6 and B3 on a
-    batch's, all from the reference run's state."""
-    from locus_tpu_torch.core.cloud import PAD_COORD
-
-    ok_m, results = check_moments(torch, tmom, pc.xyz, cfg.filtering.normals_radius_scale * state.voxel_leaf)
+def kernel_checks(torch, tnn, tmom, build, cfg, pc, state, suffix):
+    """B1/B5 and B2 (scan, map) on one robot's inputs, or B4/B6, B3 (scan,
+    map) and B3 map at B = 16 on a batch's, all from the reference run's
+    state."""
+    ok_m, results = check_moments(torch, tmom, build, pc.xyz, cfg.filtering.normals_radius_scale * state.voxel_leaf)
     oks = [ok_m]
-    scan_ref = state.odom.reference
-    t_aug = tnn.build_nn_target(scan_ref.xyz, bt=tnn.SCAN_BT)
-    c_min, c_max = tnn.chunk_boxes(scan_ref.xyz, scan_ref.mask, t_aug.shape[-2], bt=tnn.SCAN_BT)
-    q_scan = torch.where(pc.mask[..., None], pc.xyz, PAD_COORD)
-    ok, res = check_nn(
-        torch, tnn, f"nn_visits{suffix}_scan", q_scan, t_aug, scan_ref.xyz, c_min, c_max,
-        cfg.odometry.corr_dist, tnn.SCAN_BT,
-        lambda: torch.cdist(q_scan, scan_ref.xyz).min(-1),
-    )
-    oks.append(ok), results.append(res)
-    mp = state.map
-    world = pc.transform(state.loc.integrated).xyz
-    ok, res = check_nn(
-        torch, tnn, f"nn_visits{suffix}_map", world, mp.nn_aug, mp.cloud.xyz, mp.chunk_min, mp.chunk_max,
-        cfg.mapper.ann_search_radius, tnn.BT,
-        lambda: torch.cdist(world, mp.cloud.xyz).min(-1),
-    )
-    oks.append(ok), results.append(res)
+    for case in nn_cases(torch, tnn, cfg, pc, state, suffix):
+        ok, res = check_nn(torch, tnn, build, *case)
+        oks.append(ok), results.append(res)
     return all(oks), results
 
 
@@ -337,7 +364,7 @@ def main() -> int:
 
         # 2. build
         t0 = time.perf_counter()
-        secs = build.build()
+        secs = build.build(build.KERNELS + (build.FLOOR,))
         record["build"] = {
             "phase": "build", "seconds": time.perf_counter() - t0, "per_kernel_s": secs,
             "ptxas": {k: [ln for ln in v.splitlines() if "registers" in ln or "smem" in ln] for k, v in build.build_logs.items()},
@@ -375,9 +402,9 @@ def main() -> int:
 
         # 4. kernels at the main paths' shapes, inputs from the reference states
         pc = scan_for_checks(torch, cfg, [seq], REF_SCANS, ref_state.voxel_leaf, dev)
-        ok_single, results = kernel_checks(torch, tnn, tmom, cfg, pc, ref_state, "")
+        ok_single, results = kernel_checks(torch, tnn, tmom, build, cfg, pc, ref_state, "")
         pcb = scan_for_checks(torch, cfg, robot_seqs, REF_SCANS, ref_states.voxel_leaf, dev)
-        ok_batched, batched_results = kernel_checks(torch, tnn, tmom, cfg, pcb, ref_states, "_batched")
+        ok_batched, batched_results = kernel_checks(torch, tnn, tmom, build, cfg, pcb, ref_states, "_batched")
         results += batched_results
         record["kernels"] = {
             "phase": "kernels", "checks": results, "map_points": int(ref_state.map.cloud.mask.sum()),
@@ -474,14 +501,14 @@ def main() -> int:
         emit({"phase": "failed", "completed": list(record)})
         return 1
 
-    # B1/B2 from the single replay, B3/B4 from the batched one; B5/B6 lie
-    # on no path and launch in neither
+    # B1/B2 from the single replay, B3/B4 from the batched one; B5/B6 and
+    # B3 at B = 16 lie on no path and launch in neither
     counts = record["pipeline"]["launches"] | {k: record["batched"]["launches"][k] for k in BATCHED_PATH}
     summary = [
         {k: v for k, v in r.items() if k in (
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")}
-        | {"launches": counts[r["name"]]}
+            "bound_ms", "bound_by", "library_ms", "floor_ms")}
+        | {"launches": counts.get(r["name"], 0)}
         for r in record["kernels"]["checks"]
     ]
     out = ROOT / "chiprun_out"

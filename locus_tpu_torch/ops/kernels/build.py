@@ -19,7 +19,8 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("nn", "moments")
+KERNELS = ("nn", "moments")  # the sources of the pipeline's kernels
+FLOOR = "floor"              # the empty kernel that measurements time beside them
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -79,6 +80,15 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _libs[name] = lib
     return lib
+
+
+def launch_empty(grid, threads: int, stream: int) -> None:
+    """Launch the empty kernel of `csrc/floor.cu` with `grid` (x, y, z) and
+    `threads` per block on `stream` (a `cuda_stream` handle)."""
+    fn = library(FLOOR).locus_empty
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    check(fn(*grid, threads, stream), "locus_empty")
 
 
 def check(status: int, what: str) -> None:

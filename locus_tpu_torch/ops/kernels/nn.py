@@ -22,6 +22,15 @@ the single path. The wrappers pick their path from the tensors' device: a
 CPU tensor takes the plain version, a CUDA tensor launches the kernel
 (inside `dispatch.no_kernels()`, the plain version). `nn_visits` launches
 B2 for one member, `nn_visits_batched` B3 for B members in one launch.
+
+The kernel splits each query tile over blocks by queries and, for a map,
+its visited chunks (in slices of SUB targets) over further blocks whose
+partial minima are merged in the same launch by the last block to finish;
+`splits()` picks both from the shapes. The merge counts blocks in a buffer
+of int counters per device, zeroed once here and left at 0 by every
+launch; the partial minima go to scratch allocated per call. The pipeline
+runs on one stream, and two streams must not launch these kernels at
+once: they would share the counters.
 """
 from __future__ import annotations
 
@@ -35,7 +44,12 @@ from locus_tpu_torch.utils.linalg import sum_last
 
 BT = 2048      # map target chunk (the map caches are sized by it)
 SCAN_BT = 512  # scan-scale target chunk (GICP against one scan)
-BQ = 64        # query tile of the port: one CUDA block
+BQ = 64        # query tile of the port: the unit of a visit list
+SUB = 512      # targets of one slice, the unit of work of a B2/B3 block
+THREADS = 128  # threads of a B2/B3 block (csrc/nn.cu)
+QUERY_SPLITS = (1, 2, 4)  # the kernel's instances: 64, 32 or 16 queries a block
+SMALL_TARGET = 8  # a tile of at most this many slices is never split by slices
+TARGET_SPLITS = 8  # blocks a map tile's slices are split over
 BOX_BIG = 1e9
 
 # Launches of the CUDA kernels since the last reset, by chunk size (each
@@ -221,7 +235,59 @@ def check_tiling(what, q, t, cnt, ids, batch, bt: int, batched: bool):
     return num_tiles, num_chunks
 
 
-def _nn_visits_cuda(cnt, ids, q, t_aug, bt: int, batched: bool):
+def splits(batch: int, num_tiles: int, num_chunks: int, bt: int, sms: int) -> tuple[int, int]:
+    """(query splits, target splits) of a B2/B3 launch, from the shapes
+    alone (the visit counts stay on the card). A tile's queries go to as
+    many blocks as keep the grid within 2 blocks per SM: that needs no
+    merge. Where that leaves one block per tile and a tile may hold more
+    than SMALL_TARGET slices (a map), its slices go to TARGET_SPLITS
+    blocks, merged in the launch. A merge costs about as much as scanning
+    a slice (on the H100), so a scan-sized tile is never split by slices."""
+    qs = max(q for q in QUERY_SPLITS if q == 1 or batch * num_tiles * q <= 2 * sms)
+    most = num_chunks * (bt // SUB)
+    if qs > 1 or most <= SMALL_TARGET:
+        return qs, 1
+    return 1, min(most, TARGET_SPLITS)
+
+
+def launch_grid(batch: int, num_tiles: int, num_chunks: int, bt: int, sms: int):
+    """The (x, y, z) grid of a B2/B3 launch: tile parts, members, target
+    splits."""
+    qs, ts = splits(batch, num_tiles, num_chunks, bt, sms)
+    return (num_tiles * qs, batch, ts)
+
+
+# per CUDA device: (SM count, counter buffer of the in-launch merge)
+_device_state: dict[torch.device, tuple[int, torch.Tensor]] = {}
+# counter buffers replaced by larger ones, kept alive for CUDA graphs that
+# captured a launch on them
+_retired: list[torch.Tensor] = []
+
+
+def _device_buffers(dev: torch.device, num_counters: int):
+    """The SM count of `dev` and its counter buffer, at least
+    `num_counters` long. The buffer is zeroed once, when it is made or
+    grown; every launch leaves it at 0."""
+    sms, counters = _device_state.get(dev, (None, None))
+    if counters is None or counters.numel() < num_counters:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "nn_visits: the merge counters of this device are not allocated yet; "
+                "call the kernel once outside CUDA graph capture first"
+            )
+        if counters is None:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        else:
+            _retired.append(counters)
+        counters = torch.zeros(max(num_counters, 1 << 14), dtype=torch.int32, device=dev)
+        _device_state[dev] = (sms, counters)
+    return sms, counters
+
+
+def _nn_visits_cuda(cnt, ids, q, t_aug, bt: int, batched: bool, num_splits=None):
+    """Launch B2 (one member) or B3 (`batched`) on the card. `num_splits`,
+    a (query splits, target splits) pair, overrides `splits()`: the tests
+    and tools/torch_nn_ab.py run every grid with it."""
     from locus_tpu_torch.ops.kernels import build
 
     dev = q.device
@@ -233,15 +299,21 @@ def _nn_visits_cuda(cnt, ids, q, t_aug, bt: int, batched: bool):
     batch = q.shape[0] if batched else 1
     entry = "locus_nn_visits_batched" if batched else "locus_nn_visits"
     num_tiles, num_chunks = check_tiling(entry, q, t_aug, cnt, ids, batch, bt, batched)
+    if bt % SUB:
+        raise ValueError(f"{entry}: bt={bt} is not a multiple of the slice, {SUB}")
+    sms, counters = _device_buffers(dev, batch * num_tiles * max(QUERY_SPLITS))
+    qs, ts = num_splits or splits(batch, num_tiles, num_chunks, bt, sms)
     fn = getattr(build.library("nn"), entry)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (4 if batched else 3) + [ctypes.c_void_p] * 3
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (6 if batched else 5) + [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
+    partial = torch.empty(batch * num_tiles * ts * BQ * 2, dtype=torch.int32, device=dev)
     d = torch.empty(q.shape[:-1], dtype=torch.float32, device=dev)
     i = torch.empty(q.shape[:-1], dtype=torch.int32, device=dev)
     sizes = (batch, num_tiles, num_chunks, bt) if batched else (num_tiles, num_chunks, bt)
     status = fn(
-        q.data_ptr(), t_aug.data_ptr(), cnt.data_ptr(), ids.data_ptr(), *sizes,
-        d.data_ptr(), i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        q.data_ptr(), t_aug.data_ptr(), cnt.data_ptr(), ids.data_ptr(), *sizes, qs, ts,
+        partial.data_ptr(), counters.data_ptr(), d.data_ptr(), i.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(status, entry)
     (batched_launches if batched else launches)[bt] += 1

@@ -115,6 +115,144 @@ def test_batched_nn_kernel_matches_plain_and_single(cuda_device, bt, m, radius):
         np.testing.assert_array_equal(np_(ki[b]), np_(si))
 
 
+def _nn_inputs(device, bt, batch, radius, seed=20, dup=False):
+    """Visit lists and operands of kernel B2 (batch 0: no batch dimension)
+    or B3 on voxelised tunnel scans: queries at leaf 0.1, targets at 0.05
+    (4096 at bt 512, 16384 at 2048). With `dup`, the target cloud is its
+    first half twice, so every target has an exact twin in another chunk."""
+    m = 4096 if bt == 512 else 16384
+    nb = max(batch, 1)
+    q = torch.stack([_cloud(device, 4096, 0.1, seed + 2 * b, shift=(0.1, -0.05, 0.02))[0] for b in range(nb)])
+    clouds = [_cloud(device, m, 0.05, seed + 2 * b + 1) for b in range(nb)]
+    t, tm = torch.stack([c[0] for c in clouds]), torch.stack([c[1] for c in clouds])
+    if dup:
+        t, tm = t[:, : m // 2].repeat(1, 2, 1), tm[:, : m // 2].repeat(1, 2)
+    if not batch:
+        q, t, tm = q[0], t[0], tm[0]
+    t_aug = tnn.build_nn_target(t, bt=bt)
+    cmin, cmax = tnn.chunk_boxes(t, tm, t_aug.shape[-2], bt=bt)
+    tmin, tmax = tnn.tile_boxes(q)
+    cnt, ids = tnn.visit_lists(tmin, tmax, cmin, cmax, radius * radius)
+    return cnt, ids, tnn.pack_query(q), t_aug
+
+
+def _nn_kernel_and_plain(cnt, ids, q, t_aug, bt):
+    """Kernel B2 or B3 (one launch, counted) and the plain version on the
+    same inputs, as numpy (score bits, index) pairs."""
+    batched = q.dim() == 3
+    run, counts = (tnn.nn_visits_batched, tnn.batched_launches) if batched else (tnn.nn_visits, tnn.launches)
+    before = counts[bt]
+    kd, ki = run(cnt, ids, q, t_aug, bt)
+    torch.cuda.synchronize()
+    assert counts[bt] == before + 1
+    with dispatch.no_kernels():
+        pd, pi = run(cnt, ids, q, t_aug, bt)
+    return (np_(kd.view(torch.int32)), np_(ki)), (np_(pd.view(torch.int32)), np_(pi))
+
+
+def _assert_same_bits(a, b):
+    np.testing.assert_array_equal(a[0], b[0])  # score bits
+    np.testing.assert_array_equal(a[1], b[1])  # index
+
+
+@pytest.mark.parametrize("batch", [0, 4, 16])
+@pytest.mark.parametrize("bt,radius", [(512, 1.0), (2048, 2.0)])
+def test_nn_kernel_split_matches_plain_bits(cuda_device, bt, radius, batch):
+    """B2 (batch 0) and B3 at B = 4 and 16, on the grid the wrapper picks
+    (a tile split by queries, by slices merged in the launch, or not):
+    the plain version's score bits and indices."""
+    cnt, ids, q, t_aug = _nn_inputs(cuda_device, bt, batch, radius)
+    assert int(cnt.max()) * bt // tnn.SUB > 1
+    _assert_same_bits(*_nn_kernel_and_plain(cnt, ids, q, t_aug, bt))
+
+
+@pytest.mark.parametrize("query_splits", [1, 2, 4])
+@pytest.mark.parametrize("target_splits", [1, 3, 8])
+def test_nn_kernel_every_instance_matches_plain_bits(cuda_device, query_splits, target_splits):
+    """Every instance of the kernel (64, 32 or 16 queries a block) at
+    several target splits, forced, on B3 map-sized chunks with ties across
+    slices (every target has a twin in another chunk, every chunk
+    visited): the plain version's bits."""
+    cnt, ids, q, t_aug = _nn_inputs(cuda_device, 2048, 4, 1e3, dup=True)
+    num_chunks = t_aug.shape[-2] // 2048
+    cnt = torch.full_like(cnt, num_chunks)
+    ids = torch.arange(num_chunks, dtype=torch.int32, device=cuda_device).repeat(cnt.shape[-1]).expand(ids.shape).contiguous()
+    kd, ki = tnn._nn_visits_cuda(cnt, ids, q, t_aug, 2048, True, (query_splits, target_splits))
+    torch.cuda.synchronize()
+    pd, pi = tnn.nn_visits_plain(cnt, ids, q, t_aug, 2048)
+    _assert_same_bits((np_(kd.view(torch.int32)), np_(ki)), (np_(pd.view(torch.int32)), np_(pi)))
+
+
+@pytest.mark.parametrize("batch", [0, 4])
+@pytest.mark.parametrize("bt", [512, 2048])
+def test_nn_kernel_ties_empty_tiles_and_every_chunk(cuda_device, bt, batch):
+    """Every chunk visited by every tile over targets that each have an
+    exact twin in another chunk: every query's minimum ties across slices
+    and blocks, and the lower index must win. Then the same with every
+    third tile's visit count set to 0: those tiles give (+inf, 0)."""
+    cnt, ids, q, t_aug = _nn_inputs(cuda_device, bt, batch, 1e3, dup=True)
+    num_chunks = t_aug.shape[-2] // bt
+    cnt = torch.full_like(cnt, num_chunks)
+    ids = torch.arange(num_chunks, dtype=torch.int32, device=cuda_device).repeat(cnt.shape[-1]).expand(ids.shape).contiguous()
+    k, p = _nn_kernel_and_plain(cnt, ids, q, t_aug, bt)
+    _assert_same_bits(k, p)
+    m = t_aug.shape[-2] // 2
+    valid = np_(torch.all(q[..., :3].abs() < 1e7, dim=-1) & (q[..., 3] > 0))
+    assert (k[1][valid] < m).all()  # the twin in the first half wins
+    cnt = cnt.clone()
+    cnt[..., ::3] = 0
+    k, p = _nn_kernel_and_plain(cnt, ids, q, t_aug, bt)
+    _assert_same_bits(k, p)
+    empty = k[0].reshape(k[0].shape[:-1] + (-1, tnn.BQ))[..., ::3, :]
+    assert (empty.view(np.float32) == np.inf).all()
+    assert not k[1].reshape(empty.shape[:-2] + (-1, tnn.BQ))[..., ::3, :].any()
+
+
+def test_nn_kernel_back_to_back_calls_reset_the_counters(cuda_device):
+    """Two launches on different inputs, queued without a synchronisation
+    between them, then a third on the first inputs: each equals its plain
+    version, so every launch left the merge counters at 0."""
+    a = _nn_inputs(cuda_device, 2048, 4, 2.0, seed=30)
+    b = _nn_inputs(cuda_device, 2048, 4, 2.0, seed=40)
+    outs = [tnn.nn_visits_batched(*x, 2048) for x in (a, b, a)]
+    torch.cuda.synchronize()
+    with dispatch.no_kernels():
+        plain = [tnn.nn_visits_batched(*x, 2048) for x in (a, b)]
+    for (kd, ki), (pd, pi) in zip(outs, plain + plain[:1]):
+        np.testing.assert_array_equal(np_(kd.view(torch.int32)), np_(pd.view(torch.int32)))
+        np.testing.assert_array_equal(np_(ki), np_(pi))
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_nn_kernel_graph_replay_matches_eager(cuda_device, batched):
+    """One call captured in a CUDA graph and replayed twice, with an eager
+    call on other inputs in between: every replay equals the eager call on
+    the captured inputs, bit for bit."""
+    batch = 4 if batched else 0
+    x = _nn_inputs(cuda_device, 2048, batch, 2.0, seed=50)
+    y = _nn_inputs(cuda_device, 2048, batch, 2.0, seed=60)
+    run = tnn.nn_visits_batched if batched else tnn.nn_visits
+    eager_d, eager_i = run(*x, 2048)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run(*x, 2048)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gd, gi = run(*x, 2048)
+    for _ in range(2):
+        graph.replay()
+        other_d, other_i = run(*y, 2048)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(np_(gd.view(torch.int32)), np_(eager_d.view(torch.int32)))
+        np.testing.assert_array_equal(np_(gi), np_(eager_i))
+    with dispatch.no_kernels():
+        pd, pi = run(*y, 2048)
+    np.testing.assert_array_equal(np_(other_d.view(torch.int32)), np_(pd.view(torch.int32)))
+    np.testing.assert_array_equal(np_(other_i), np_(pi))
+
+
 def test_batched_moments_kernels_match_plain_and_single(cuda_device):
     """Kernels B4 (pruned) and B6 (dense) on 4 members with 4 radii, and B5
     on each member: equal to their plain versions and to the single

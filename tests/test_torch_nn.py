@@ -9,6 +9,7 @@ kernel itself is held against the plain version in test_torch_gpu.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from locus_tpu.core.cloud import PointCloud as JPC
 from locus_tpu.ops import voxel as jvoxel
@@ -118,6 +119,103 @@ def test_visit_lists_exact_against_brute_force():
     assert qi.size > 0
     assert visit[qi // tnn.BQ, ti // 512].all()
     assert visit.mean() < 0.6  # the pruning does skip chunks
+
+
+def _lex_min(a, b):
+    """(score, index) lexicographic minimum of two (d, i) results."""
+    (da, ia), (db, ib) = a, b
+    take = (db < da) | ((db == da) & (ib < ia))
+    return torch.where(take, db, da), torch.where(take, ib, ia)
+
+
+def _visit_case(rng, batch, bt, sub, num_chunks=4):
+    """Operands and visit lists for nn_visits_plain over 4 query tiles,
+    with a leading batch dimension when batch > 0. The first 64 targets of
+    chunk 0 repeat at the start of the last chunk (exact score ties across
+    chunks), and every 4th query lies near one of them. Visit lists are
+    random, except that tile 0 visits every chunk, tile 1 none, and tile 2
+    the last chunk but not chunk 0. Padding rows (+inf) fill the last range
+    of `sub` targets."""
+    lead = (batch,) if batch else ()
+    nb, num_tiles = max(batch, 1), 4
+    n_pad, m_pad = num_tiles * tnn.BQ, num_chunks * bt
+    pts = rng.uniform(-5, 5, size=(nb, m_pad, 3)).astype(np.float32)
+    last = (num_chunks - 1) * bt
+    pts[:, last : last + 64] = pts[:, :64]
+    q = rng.uniform(-5, 5, size=(nb, n_pad, 3)).astype(np.float32)
+    q[:, ::4] = pts[:, :64] + rng.normal(scale=1e-3, size=(nb, 64, 3)).astype(np.float32)
+    m = m_pad - sub - 88
+    t_aug = tnn.build_nn_target(torch.from_numpy(pts[:, :m]).reshape(lead + (m, 3)), m_pad=m_pad, bt=bt)
+    visit = rng.uniform(size=(nb, num_tiles, num_chunks)) < 0.6
+    visit[:, 0], visit[:, 1] = True, False
+    visit[:, 2, 0], visit[:, 2, -1] = False, True
+    cnt = visit.sum(-1).astype(np.int32)
+    ids = np.zeros((nb, num_tiles, num_chunks), np.int32)
+    for b, g in np.ndindex(nb, num_tiles):
+        ids[b, g, : cnt[b, g]] = np.nonzero(visit[b, g])[0]
+    as_t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).reshape(lead + x.shape[1:])
+    return as_t(cnt), as_t(ids.reshape(nb, -1)), tnn.pack_query(as_t(q)), t_aug
+
+
+@pytest.mark.parametrize("batch", [0, 3], ids=["single", "batched"])
+@pytest.mark.parametrize("bt,sub", [(512, 256), (2048, 512)])
+def test_nn_visits_merge_of_slices_is_bit_exact(rng, bt, sub, batch):
+    """The rule the B2/B3 kernel's split relies on: cut every tile's visit
+    list into slices (one visited chunk, and within it one range of `sub`
+    targets, the rest of the operand masked to +inf), run the plain version
+    on each slice, and merge the results in a random order by (score,
+    index) lexicographic minimum. The bits equal the full call's, exact
+    ties across chunks and tiles with cnt = 0 included."""
+    cnt, ids, q, t_aug = _visit_case(rng, batch, bt, sub)
+    num_chunks = t_aug.shape[-2] // bt
+    full_d, full_i = tnn.nn_visits_plain(cnt, ids, q, t_aug, bt)
+    slot_ids = ids.reshape(cnt.shape + (num_chunks,))
+    offset = torch.arange(t_aug.shape[-2]) % bt
+    pieces = []
+    for v in range(num_chunks):
+        cnt_v = (cnt > v).to(torch.int32)
+        ids_v = torch.zeros_like(slot_ids)
+        ids_v[..., 0] = slot_ids[..., v]
+        for r in range(bt // sub):
+            t_r = t_aug.clone()
+            out = (offset < r * sub) | (offset >= (r + 1) * sub)
+            t_r[..., out, :3] = 0.0
+            t_r[..., out, 3] = float("inf")
+            pieces.append(tnn.nn_visits_plain(cnt_v, ids_v.flatten(-2), q, t_r, bt))
+    merged = (torch.full_like(full_d, float("inf")), torch.zeros_like(full_i))
+    for k in rng.permutation(len(pieces)):
+        merged = _lex_min(merged, pieces[k])
+    np.testing.assert_array_equal(np_(merged[0].view(torch.int32)), np_(full_d.view(torch.int32)))
+    np.testing.assert_array_equal(np_(merged[1]), np_(full_i))
+    # the cases the kernel must get right are present: a tie across chunks
+    # won by the lower index (tile 0), the same targets won in the last
+    # chunk where chunk 0 is not visited (tile 2), and a tile without
+    # visits at (+inf, 0) (tile 1)
+    near = full_i[..., 0 : 4 * tnn.BQ : 4].reshape(-1, 4, 16)
+    np.testing.assert_array_equal(np_(near[:, 0]), np_(torch.arange(16).expand(near.shape[0], 16)))
+    np.testing.assert_array_equal(np_(near[:, 2]), np_((torch.arange(32, 48) + (num_chunks - 1) * bt).expand(near.shape[0], 16)))
+    assert bool(torch.isinf(full_d[..., tnn.BQ : 2 * tnn.BQ]).all())
+    assert not bool(full_i[..., tnn.BQ : 2 * tnn.BQ].any())
+
+
+@pytest.mark.parametrize("batch,num_tiles,num_chunks,bt", [
+    (1, 64, 8, 512), (1, 64, 64, 2048), (4, 64, 8, 512), (4, 64, 64, 2048), (16, 64, 64, 2048),
+    (16, 64, 8, 512), (2, 64, 64, 2048), (64, 64, 64, 2048),
+])
+def test_nn_visits_splits_from_the_shapes(batch, num_tiles, num_chunks, bt):
+    """The B2/B3 grid: a tile's queries split over the most blocks (an
+    instance of the kernel) that keep the grid within 2 blocks per SM;
+    where that leaves one block per tile and a tile may hold more than
+    SMALL_TARGET slices, its slices split over TARGET_SPLITS blocks."""
+    sms = 132
+    qs, ts = tnn.splits(batch, num_tiles, num_chunks, bt, sms)
+    units = batch * num_tiles
+    assert qs in tnn.QUERY_SPLITS
+    assert qs == 1 or units * qs <= 2 * sms
+    assert qs == max(tnn.QUERY_SPLITS) or units * qs * 2 > 2 * sms
+    most = num_chunks * bt // tnn.SUB
+    assert ts == (1 if qs > 1 or most <= tnn.SMALL_TARGET else min(most, tnn.TARGET_SPLITS))
+    assert tnn.launch_grid(batch, num_tiles, num_chunks, bt, sms) == (num_tiles * qs, batch, ts)
 
 
 def test_nn_visits_uses_plain_on_cpu():
