@@ -17,9 +17,11 @@ Phases, each printing one JSON line:
                B4's), against its plain version on the same inputs, timed
                with CUDA events beside the plain version, a one-call
                PyTorch yardstick where one exists, and the bound from this
-               run's visited pairs and the launch floor of the kernel's
-               grid (an empty kernel); B2/B3 are held to the plain
-               version's bits. One informational row, B3 map at B = 16
+               run's visited pairs and the launch floor of the grid and
+               block the wrapper launches (an empty kernel); every kernel
+               is held to the plain version's results on every row (B2/B3
+               score bits and index, B1/B4-B6 the ten sums). One
+               informational row, B3 map at B = 16
                (the four robots' inputs stacked four times), lies on no path
  5. pipeline   the 48-scan production replay through runner.run_sequence
                with launch counts reset just before and read just after;
@@ -51,7 +53,6 @@ ROOT = Path(__file__).resolve().parent
 # an unfused multiply, add or compare issues at half that rate. HBM bandwidth.
 PEAK_FP32_OPS = 33.5e12
 PEAK_BYTES = 3.35e12
-MOMENT_THREADS = 256  # threads of a block of the moments kernels (csrc/moments.cu)
 
 SCANS, REF_SCANS, RATE_WINDOW = 48, 8, 32
 ROBOTS, ROBOT_SCANS, TICK_WINDOW = 4, 24, 16
@@ -62,7 +63,6 @@ BATCHED_LIMIT_M = 1e-3  # each robot of the batched replay against its single re
 # the kernels each replay launches: B1, B2 (scan, map); B4, B3 (scan, map)
 SINGLE_PATH = ("moments_visits", "nn_visits_scan", "nn_visits_map")
 BATCHED_PATH = ("moments_visits_batched", "nn_visits_batched_scan", "nn_visits_batched_map")
-MOMENT_RTOL = 1e-6  # kernel vs plain, raw moment sums (float64 sums: exact)
 
 
 def emit(record: dict) -> None:
@@ -184,15 +184,13 @@ def check_nn(torch, tnn, build, name, bt, radius, args, query, target):
     }
 
 
-def compare_moments(torch, k, p, q):
-    """(ok, max abs error, count mismatches) of kernel sums k against the
-    plain version's p over the valid query rows of q."""
-    valid = torch.all(q[..., :3].abs() < 1e7, dim=-1) & (q[..., 3] > 0)
-    kv, pv = k[valid].double(), p[valid].double()
-    rel = (kv - pv).abs() / pv.abs().clamp(min=1e-30)
-    count_mismatches = int((kv[:, 9] != pv[:, 9]).sum())
-    ok = bool((rel <= MOMENT_RTOL).all()) and count_mismatches == 0
-    return ok, float((kv - pv).abs().max()), count_mismatches
+def compare_moments(k, p):
+    """(ok, max abs error, sum mismatches, count mismatches) of kernel sums k
+    against the plain version's p on every row: the two must be equal."""
+    kv, pv = k.double(), p.double()
+    sum_mismatches = int((kv != pv).sum())
+    count_mismatches = int((kv[..., 9] != pv[..., 9]).sum())
+    return sum_mismatches == 0, float((kv - pv).abs().max()), sum_mismatches, count_mismatches
 
 
 MOMENT_SOURCES = {
@@ -231,13 +229,16 @@ def check_moments(torch, tmom, build, query, radius):
         k = kernel()
         torch.cuda.synchronize()
         p = plain()
-        ok, err, count_mismatches = compare_moments(torch, k, p, qq)
+        ok, err, sum_mismatches, count_mismatches = compare_moments(k, p)
         sums.append(k[..., : query.shape[-2], :])
         inside = int(p[..., 9].sum())
         ms = device_time_ms(torch, kernel)
         plain_ms = device_time_ms(torch, plain, reps=5)
         nbytes = (qq.numel() + tt.numel() + r2.numel()) * 4 + qq.shape[:-1].numel() * tmom.NM * 4
-        if name.startswith("moments_visits"):
+        kind = "visits" if name.startswith("moments_visits") else "dense"
+        bt = tmom.MBT if kind == "visits" else tmom.DENSE_BT
+        grid, threads = tmom.launch_grid(kind, query.shape[0] if batched else 1, qq.shape[-2] // tmom.BQ)
+        if kind == "visits":
             nbytes += (cnt.numel() + ids.numel()) * 4
         # 8 ops per visited pair (3 mul, 4 add, compare) + 16 per pair inside
         # the radius (6 products, 10 sums)
@@ -247,12 +248,12 @@ def check_moments(torch, tmom, build, query, radius):
             "name": name, "route": "cuda", "source": "locus_tpu_torch/csrc/moments.cu",
             "replaces": MOMENT_SOURCES[name], "batch": query.shape[0] if batched else 1,
             "queries": query.shape[-2], "targets": query.shape[-2],
-            "bt": tmom.MBT if name.startswith("moments_visits") else tmom.DENSE_BT,
+            "bt": bt,
             "radius": radius.reshape(-1).tolist(), "visited_pairs": visited, "pairs_in_radius": inside,
-            "max_abs_err": err, "count_mismatches": count_mismatches,
-            "tolerance": f"sums rtol {MOMENT_RTOL}, counts equal",
+            "max_abs_err": err, "sum_mismatches": sum_mismatches, "count_mismatches": count_mismatches,
+            "tolerance": "the ten sums equal on every row", "grid": list(grid), "threads": threads,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": None,
-            "floor_ms": floor_ms(torch, build, (qq.shape[-2] // tmom.BQ, query.shape[0] if batched else 1, 1), MOMENT_THREADS),
+            "floor_ms": floor_ms(torch, build, grid, threads),
         })
     for c, v in before.items():
         setattr(tmom, c, v)  # comparison launches are not main-path launches

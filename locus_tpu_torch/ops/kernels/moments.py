@@ -19,6 +19,12 @@ Every function takes one leading batch dimension or none (the B-less call
 is the single path). The wrappers pick their path from the tensors'
 device: a CPU tensor takes the plain version, a CUDA tensor launches the
 kernel (inside `dispatch.no_kernels()`, the plain version).
+
+B1/B4 split each query tile over SPLIT[0] blocks by queries (a grid fixed
+by the shapes: no visit count read, so no host synchronisation; no merge).
+Whatever the split or the batch, a query's sums combine in one order: per
+QUARTER of each visited chunk in list order, then the four quarters as
+((P0 + P1) + (P2 + P3)), so a B4 member equals B1 bit for bit.
 """
 from __future__ import annotations
 
@@ -44,6 +50,14 @@ MBT = 512        # target chunk of the pruned moments pass
 DENSE_BT = 1024  # target chunk of the dense pass (the JAX kernel's BT)
 NM = 10          # moment columns
 PAD_T2 = 1e12    # |t|^2 of padding targets: fails every gate
+QUARTER = MBT // 4  # targets of one fixed partial of B1/B4 (one warp's share of a chunk)
+DENSE_THREADS = 256  # threads of a B5/B6 block (csrc/moments.cu)
+# The instance B1/B4 launch (QUERY_SPLITS, WARPS of csrc/moments.cu): each
+# tile to two blocks of 32 queries, 4 warps a quarter of a chunk (512
+# threads, one octet of queries a warp). The fastest instance at both B1's
+# 64 tiles and B4's 4 x 64 on the H100 (tools/torch_moments_ab.py sweeps
+# the others; PERF.md).
+SPLIT = (2, 4)
 
 # Launches of each CUDA kernel since the last reset (plain runs not counted).
 launches = 0                # B1
@@ -81,7 +95,18 @@ def moments_visits_plain(cnt, ids, r2, q, t, bt: int = MBT):
     return out
 
 
+def launch_grid(kind: str, batch: int, num_tiles: int):
+    """((x, y, z) grid, threads a block) of a moments launch: `kind`
+    "visits" (B1/B4: tile parts, members) or "dense" (B5/B6: tiles,
+    members)."""
+    if kind == "dense":
+        return (num_tiles, batch, 1), DENSE_THREADS
+    qs, warps = SPLIT
+    return (num_tiles * qs, batch, 1), 128 * warps
+
+
 def _moments_cuda(kind, cnt, ids, r2, q, t, bt: int, batched: bool):
+    """Launch B1/B4 (`kind` "visits") or B5/B6 ("dense") on the card."""
     from locus_tpu_torch.ops.kernels import build
 
     dense = kind == "dense"

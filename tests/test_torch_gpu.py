@@ -283,6 +283,134 @@ def test_batched_moments_kernels_match_plain_and_single(cuda_device):
         np.testing.assert_array_equal(np_(k5)[same], np_(k1)[same])
 
 
+def _moments_inputs(device, batch, every_chunk, leaves=(0.2, 0.15, 0.3, 0.1)):
+    """Visit lists and operands of kernel B1 (batch 0) or B4 on voxelised
+    tunnel scans (one leaf and radius 2.5 leaf a member), every third
+    tile's visit count set to 0; with `every_chunk` every other tile visits
+    every chunk."""
+    nb = max(batch, 1)
+    xyz, _ = _batch(device, leaves[:nb], seeds=(3, 4, 5, 6)[:nb])
+    r2 = torch.tensor([(2.5 * lf) ** 2 for lf in leaves[:nb]], dtype=torch.float32, device=device)
+    if not batch:
+        xyz = xyz[0]
+    cnt, ids = tmom.prune(xyz, xyz, r2)
+    q, t = tmom.pack_operands(xyz, xyz)
+    if every_chunk:
+        num_chunks = t.shape[-2] // tmom.MBT
+        cnt = torch.full_like(cnt, num_chunks)
+        ids = torch.arange(num_chunks, dtype=torch.int32, device=device).repeat(cnt.shape[-1]).expand(ids.shape).contiguous()
+    cnt = cnt.clone()
+    cnt[..., ::3] = 0
+    return cnt, ids, r2, q, t
+
+
+def _check_b1_b4_bits(single, batched):
+    """B1 on `single` and B4 on `batched`: the plain version's sums on every
+    row, and every B4 member the sums of B1 on its inputs."""
+    k1 = tmom.moments_visits(*single)
+    k4 = tmom.moments_visits_batched(*batched)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(np_(k1), np_(tmom.moments_visits_plain(*single)))
+    np.testing.assert_array_equal(np_(k4), np_(tmom.moments_visits_plain(*batched)))
+    cnt, ids, r2, q, t = batched
+    for b in range(q.shape[0]):
+        kb = tmom.moments_visits(cnt[b].contiguous(), ids[b].contiguous(), r2[b:b + 1],
+                                 q[b].contiguous(), t[b].contiguous())
+        np.testing.assert_array_equal(np_(kb), np_(k4[b]), err_msg=f"member {b}")
+
+
+@pytest.mark.parametrize("every_chunk", [False, True], ids=["visit_lists", "every_chunk"])
+def test_moments_kernel_grid_matches_plain_bits(cuda_device, every_chunk):
+    """The B1/B4 kernel at the grid it launches (two blocks a tile), on B1's
+    and B4's inputs with tiles that visit nothing and, or not, tiles that
+    visit every chunk: the plain version's bits, and B4 member == B1."""
+    single = _moments_inputs(cuda_device, 0, every_chunk)
+    assert not tmom.moments_visits_plain(*single)[: tmom.BQ].any()
+    _check_b1_b4_bits(single, _moments_inputs(cuda_device, 4, every_chunk))
+
+
+def _boundary_inputs(device, scales, seed=0):
+    """Operands on which only the rounding margin of the kernel's in-tile
+    skip test (`apart`) keeps neighbours: per member, 64 query octets of 8
+    copies of one point (at `scale` times [-1, 1]^3 from the origin) and,
+    beside each, a group of 32 targets at radius 0.3 times 1 +- spread (a
+    few rounding units of the f32 gate at 1 m and 40 m; every other group
+    wholly beyond the radius), sentinel rows at the end; every tile visits
+    every chunk."""
+    rng = np.random.default_rng(seed)
+    r = np.float32(0.3)
+    qs, ts = [], []
+    for scale in scales:
+        sp = {1.0: 2e-5, 40.0: 2e-3}[scale]
+        base = rng.uniform(-1, 1, size=(64, 3)) * scale
+        base = base[np.argsort(base[:, 0])]
+        dirs = rng.normal(size=(64, 3))
+        dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+        eps = rng.uniform(-sp, sp, size=(64, 32, 1))
+        eps[::2] = np.abs(eps[::2])
+        qry = np.repeat(base, 8, axis=0).astype(np.float32)
+        tgt = (base[:, None] + dirs[:, None] * float(r) * (1 + eps)).reshape(-1, 3).astype(np.float32)
+        qry[-5:] = tgt[-7:] = 1e8
+        q, t = tmom.pack_operands(torch.from_numpy(qry).to(device), torch.from_numpy(tgt).to(device))
+        qs.append(q)
+        ts.append(t)
+    q, t = torch.stack(qs), torch.stack(ts)
+    nb, num_tiles, num_chunks = len(scales), q.shape[-2] // tmom.BQ, t.shape[-2] // tmom.MBT
+    cnt = torch.full((nb, num_tiles), num_chunks, dtype=torch.int32, device=device)
+    ids = torch.arange(num_chunks, dtype=torch.int32, device=device).repeat(nb, num_tiles)
+    r2 = torch.full((nb,), float(r * r), dtype=torch.float32, device=device)
+    return cnt, ids, r2, q, t
+
+
+@pytest.mark.parametrize("scale", [1.0, 40.0], ids=["near", "far"])
+def test_moments_kernel_keeps_neighbours_at_the_radius(cuda_device, scale):
+    """The kernel skips a (query octet, 32-target group) pair whose boxes lie
+    beyond the radius plus a margin for the gate's rounding. On neighbours
+    at the radius to a few rounding units, 1 m and 40 m from the origin,
+    B1 and B4 still give the plain version's bits (the plain gate passes
+    some pairs beyond the radius and fails some within it)."""
+    batched = _boundary_inputs(cuda_device, (scale, 1.0, 40.0, scale), seed=int(scale))
+    cnt, ids, r2, q, t = batched
+    single = (cnt[0], ids[0], r2[:1], q[0], t[0])
+    p = tmom.moments_visits_plain(*single)
+    assert p[..., 9].sum() > 0
+    _check_b1_b4_bits(single, batched)
+
+
+def test_moments_kernel_back_to_back_and_graph_replay(cuda_device):
+    """B4 on two inputs queued without a synchronisation between them, then
+    the first again; then one B1 call captured in a CUDA graph and replayed
+    twice around an eager call on other inputs: every result equals the
+    plain version's, bit for bit."""
+    a = _moments_inputs(cuda_device, 4, False)
+    b = _moments_inputs(cuda_device, 4, True)
+    outs = [tmom.moments_visits_batched(*x) for x in (a, b, a)]
+    torch.cuda.synchronize()
+    plain = [tmom.moments_visits_plain(*x) for x in (a, b, a)]
+    for k, p in zip(outs, plain):
+        np.testing.assert_array_equal(np_(k), np_(p))
+    x = _moments_inputs(cuda_device, 0, False)
+    y = _moments_inputs(cuda_device, 0, True, leaves=(0.3,))
+    eager = tmom.moments_visits(*x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tmom.moments_visits(*x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = tmom.launches
+    with torch.cuda.graph(graph):
+        captured = tmom.moments_visits(*x)
+    assert tmom.launches == before + 1
+    for _ in range(2):
+        graph.replay()
+        other = tmom.moments_visits(*y)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(np_(captured), np_(eager))
+        np.testing.assert_array_equal(np_(other), np_(tmom.moments_visits_plain(*y)))
+    np.testing.assert_array_equal(np_(eager), np_(tmom.moments_visits_plain(*x)))
+
+
 def _small_cfg():
     return cfg_mod.LocusConfig(
         scan_capacity=1024,

@@ -18,6 +18,8 @@ in interpret mode and its XLA path. Tolerances:
   to 1e-4.
 The CUDA kernel itself is held against the plain version in
 test_torch_gpu.py."""
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -144,3 +146,148 @@ def test_eigen_solvers_match(rng):
     tw, tV = tnorm.eigh_sym3x3(to_torch(A))
     np.testing.assert_allclose(np_(tw), np_(jw), atol=1e-4, rtol=0)
     np.testing.assert_allclose(np.abs(np.sum(np_(tV) * np_(jV), -2)), 1.0, atol=1e-3)
+
+
+def _visit_case(rng, batch, every_chunk, num_tiles=6, num_chunks=4, r=0.6):
+    """Packed operands and visit lists of kernel B1 (batch 0) or B4 at
+    MBT = 512: points straddling 0 on every axis, a thin (1e-4 m thick)
+    sheet and a line in the first two chunks (thin neighbourhoods), the
+    queries a jittered subset of the targets, padding rows at the end.
+    Tile 1 visits nothing; with `every_chunk` the others visit every chunk,
+    else a random subset in ascending order."""
+    nb = max(batch, 1)
+    m = num_chunks * tmom.MBT - 100
+    pts = rng.uniform(-2.0, 2.0, size=(nb, m, 3)).astype(np.float32)
+    pts[:, :300, 2] = rng.normal(scale=1e-4, size=(nb, 300))                   # sheet
+    pts[:, 300:600] = np.linspace(-1, 1, 300)[:, None] * np.float32([1.0, 0.5, -0.25])  # line
+    qry = pts[:, rng.choice(m, num_tiles * tmom.BQ - 30, replace=False)]
+    qry = qry + rng.normal(scale=0.05, size=qry.shape).astype(np.float32)
+    lead = (batch,) if batch else ()
+    to_t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).reshape(lead + x.shape[1:])
+    q, t = tmom.pack_operands(to_t(qry), to_t(pts))
+    visit = np.ones((nb, num_tiles, num_chunks), bool) if every_chunk else rng.uniform(size=(nb, num_tiles, num_chunks)) < 0.6
+    visit[:, 1] = False
+    cnt = visit.sum(-1).astype(np.int32)
+    ids = np.zeros((nb, num_tiles, num_chunks), np.int32)
+    for b, g in np.ndindex(nb, num_tiles):
+        ids[b, g, : cnt[b, g]] = np.nonzero(visit[b, g])[0]
+    r2 = torch.full((nb,), r * r, dtype=torch.float32)
+    return to_t(cnt), to_t(ids.reshape(nb, -1)), r2, q, t
+
+
+def _fixed_order_sums(cnt, ids, r2, q, t):
+    """B1/B4's order of summation, in float64: per member and query, the
+    partial of each QUARTER of the chunks (targets 128w .. 128w + 127 of
+    every visited chunk, in list order), then ((P0 + P1) + (P2 + P3)), then
+    one f32 rounding."""
+    lead = q.shape[:-2]
+    cnt, ids, q, t = (x.reshape((-1,) + x.shape[len(lead):]) for x in (cnt, ids, q, t))
+    r2 = r2.reshape(-1)
+    out = torch.empty(q.shape[:-1] + (tmom.NM,), dtype=torch.float32)
+    num_chunks = t.shape[-2] // tmom.MBT
+    for b in range(q.shape[0]):
+        x, y, z = t[b, :, 0], t[b, :, 1], t[b, :, 2]
+        feat = torch.stack([x, y, z, x * x, y * y, z * z, x * y, x * z, y * z, torch.ones_like(x)], -1).double()
+        score = t[b, None, :, 3] + q[b, :, 0:1] * (-2.0 * t[b, None, :, 0]) + q[b, :, 1:2] * (-2.0 * t[b, None, :, 1]) \
+            + q[b, :, 2:3] * (-2.0 * t[b, None, :, 2])
+        W = ((score + q[b, :, 3:4]) <= r2[b]).double()
+        for g in range(cnt.shape[-1]):
+            rows = slice(g * tmom.BQ, (g + 1) * tmom.BQ)
+            part = torch.zeros((4, tmom.BQ, tmom.NM), dtype=torch.float64)
+            for v in range(int(cnt[b, g])):
+                c = int(ids[b, g * num_chunks + v])
+                for w in range(4):
+                    cols = slice(c * tmom.MBT + w * tmom.QUARTER, c * tmom.MBT + (w + 1) * tmom.QUARTER)
+                    part[w] += W[rows, cols] @ feat[cols]
+            out[b, rows] = ((part[0] + part[1]) + (part[2] + part[3])).float()
+    return out.reshape(lead + out.shape[1:])
+
+
+@pytest.mark.parametrize("every_chunk", [False, True], ids=["visit_lists", "every_chunk"])
+@pytest.mark.parametrize("batch", [0, 3], ids=["single", "batched"])
+def test_moments_visits_fixed_partials_are_bit_exact(rng, batch, every_chunk):
+    """The premise of the B1/B4 kernel's split: its fixed partials (one per
+    quarter of the visited chunks, in list order) combined in its fixed
+    order give the plain version's bits on every row, tiles with no visits
+    and thin neighbourhoods included; a batch member gets the bits of its
+    single call."""
+    cnt, ids, r2, q, t = _visit_case(rng, batch, every_chunk)
+    plain = tmom.moments_visits_plain(cnt, ids, r2, q, t)
+    np.testing.assert_array_equal(np_(_fixed_order_sums(cnt, ids, r2, q, t)), np_(plain))
+    assert not plain[..., tmom.BQ : 2 * tmom.BQ, :].any()  # tile 1 visits nothing
+    assert float(plain[..., 9].mean()) > 5  # the radius holds real neighbourhoods
+    for b in range(batch):
+        single = tmom.moments_visits_plain(cnt[b], ids[b], r2[b:b + 1], q[b], t[b])
+        np.testing.assert_array_equal(np_(plain[b]), np_(single))
+
+
+def _apart(lo, hi, q2, glo, ghi, g2, r2):
+    """The B1/B4 kernel's skip test (`apart` in csrc/moments.cu), in f32."""
+    f32 = np.float32
+    gap = np.maximum(np.maximum(glo - hi, lo - ghi), f32(0))
+    gap2 = (gap * gap).sum(-1, dtype=np.float32)
+    return gap2 * f32(1 - 2.0 ** -20) > f32(r2) + f32(2.0 ** -19) * (q2 + g2)
+
+
+@pytest.mark.parametrize("scale,spread", [(1.0, 2e-5), (40.0, 2e-3)], ids=["near", "far"])
+def test_moments_visits_group_pruning_keeps_every_neighbour(rng, scale, spread):
+    """The kernel skips a (query octet, 32-target group) pair when their
+    boxes lie farther apart than the radius plus a margin for the f32
+    gate's rounding. Mirrored here where that margin is all that keeps a
+    neighbour: each octet is 8 copies of a point and the group beside it
+    32 targets at the radius times 1 +- `spread` (a few rounding units of
+    the gate at 1 m and 40 m from the origin; every other group wholly
+    beyond the radius), with sentinel rows. Every pair the plain version's
+    gate passes, those beyond the radius included, lies in a pair of boxes
+    the test keeps, and most pairs are skipped."""
+    r = np.float32(0.3)
+    base = rng.uniform(-1, 1, size=(64, 3)) * scale
+    base = base[np.argsort(base[:, 0])]
+    dirs = rng.normal(size=(64, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    eps = rng.uniform(-spread, spread, size=(64, 32, 1))
+    eps[::2] = np.abs(eps[::2])  # every other group lies wholly beyond the radius
+    qry = np.repeat(base, 8, axis=0).astype(np.float32)
+    tgt = (base[:, None] + dirs[:, None] * float(r) * (1 + eps)).reshape(-1, 3).astype(np.float32)
+    qry[-5:] = tgt[-7:] = 1e8  # sentinel rows pass the gate against each other
+    q, t = tmom.pack_operands(torch.from_numpy(qry), torch.from_numpy(tgt))
+    q, t = np_(q), np_(t)
+    r2 = np.float32(r * r)
+    score = t[None, :, 3] + q[:, None, 0] * (-2 * t[None, :, 0]) + q[:, None, 1] * (-2 * t[None, :, 1]) \
+        + q[:, None, 2] * (-2 * t[None, :, 2])
+    passes = (score + q[:, None, 3]) <= r2
+    d = np.linalg.norm(q[:, None, :3].astype(np.float64) - t[None, :, :3], axis=-1)
+    assert (passes & (d > r)).any() and (~passes & (d < 1.1 * r)).any()  # the boundary is in play
+    real = t[:, 3] != np.float32(tmom.PAD_T2)
+    tg, rg, qo = t.reshape(-1, 32, 4), real.reshape(-1, 32, 1), q.reshape(-1, 8, 4)
+    glo = np.where(rg, tg[..., :3], np.inf).min(1)
+    ghi = np.where(rg, tg[..., :3], -np.inf).max(1)
+    g2 = np.where(rg[..., 0], tg[..., 3], 0).max(1)
+    skip = _apart(qo[:, None, :, :3].min(2), qo[:, None, :, :3].max(2), qo[:, None, :, 3].max(2),
+                  glo[None], ghi[None], g2[None], r2)
+    assert not (passes & skip.repeat(8, 0).repeat(32, 1)).any()
+    assert skip.mean() > 0.5, skip.mean()
+
+
+def test_moments_splits_from_the_shapes():
+    """B1/B4 launch one instance, fixed in csrc/moments.cu: its grid depends
+    on the shapes only (no visit count read), and B4 at any batch gives
+    each member the blocks (and so the partial structure) of B1."""
+    src = (Path(tmom.__file__).resolve().parents[2] / "csrc" / "moments.cu").read_text()
+    qs, warps = tmom.SPLIT
+    assert f"constexpr int QUERY_SPLITS = {qs}, WARPS = {warps};" in src
+    for batch, tiles in ((1, 64), (4, 64), (16, 64), (1, 16), (4, 256)):
+        assert tmom.launch_grid("visits", batch, tiles) == ((tiles * qs, batch, 1), 128 * warps)
+    assert tmom.launch_grid("dense", 4, 64) == ((64, 4, 1), tmom.DENSE_THREADS)
+    assert (tmom.BQ // qs) % (8 * warps) == 0  # whole octets of queries a warp
+
+
+def test_moments_visits_uses_plain_on_cpu(rng):
+    cnt, ids, r2, q, t = _visit_case(rng, 0, False)
+    before = (tmom.launches, tmom.batched_launches)
+    out = tmom.moments_visits(cnt, ids, r2, q, t)
+    np.testing.assert_array_equal(np_(out), np_(tmom.moments_visits_plain(cnt, ids, r2, q, t)))
+    cnt, ids, r2, q, t = _visit_case(rng, 2, False)
+    out = tmom.moments_visits_batched(cnt, ids, r2, q, t)
+    np.testing.assert_array_equal(np_(out), np_(tmom.moments_visits_plain(cnt, ids, r2, q, t)))
+    assert (tmom.launches, tmom.batched_launches) == before

@@ -32,14 +32,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def build_base(build, src: Path) -> ctypes.CDLL:
-    """nvcc of the base source into build/ab/, with the checkout's flags."""
+def build_base(build, src: Path, flags: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """nvcc of the base source into build/ab/, with the checkout's flags
+    and `flags`."""
     out_dir = ROOT / "build" / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = out_dir / f"libnn_base-{digest}.so"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    out = out_dir / f"lib{src.stem}-{digest}.so"
     if not out.exists():
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(src)]
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, *flags, "-o", str(out), str(src)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
