@@ -9,9 +9,10 @@ nothing of JAX or of `locus_tpu`.
 Phases, each printing one JSON line:
  1. device     card name and the nvidia-smi power limit
  2. build      nvcc of every kernel source, all at once
- 3. reference  the first 8 scans of the production tunnel replay, and the
-               first 8 ticks of the 4-robot batched replay, with the
-               kernels' plain PyTorch versions (`no_kernels()`), on the card
+ 3. reference  the first 8 scans of the production tunnel replay, the
+               first 8 ticks of the 4-robot batched replay, and the first 8
+               scans of each path of phase 8, with the kernels' plain
+               PyTorch versions (`no_kernels()`), on the card
  4. kernels    each kernel at the shapes the main paths give it (inputs
                from the reference runs' states; B5 on B1's inputs, B6 on
                B4's), against its plain version on the same inputs, timed
@@ -20,8 +21,9 @@ Phases, each printing one JSON line:
                run's visited pairs and the launch floor of the grid and
                block the wrapper launches (an empty kernel); every kernel
                is held to the plain version's results on every row (B2/B3
-               score bits and index, B1/B4-B6 the ten sums). One
-               informational row, B3 map at B = 16
+               score bits and index, B1/B4-B6 the ten sums). B2 map also
+               runs on the voxel-hash operand (from the voxel_hash path's
+               reference state). One informational row, B3 map at B = 16
                (the four robots' inputs stacked four times), lies on no path
  5. pipeline   the 48-scan production replay through runner.run_sequence
                with launch counts reset just before and read just after;
@@ -33,8 +35,17 @@ Phases, each printing one JSON line:
                runner.make_scan_replay; ticks/s and robot-scans/s over the
                last 16 ticks, per-robot ATE and difference from the single
                replay, launches per tick
-Then the `kernels` summary line, the nvidia-smi line, and the final
-`{"ok": true, ...}` line. The full record also goes to
+ 8. ndt, features, voxel_hash
+               48 scans of the other single-card paths (`path_config`;
+               `path_sequence`: NDT on its source's world tunnel, the
+               others on the production tunnel), each with launch counts reset just
+               before and read just after: scans/s over the last 32 scans,
+               p50 and max latency, ATE, launches per scan by kernel, and
+               its first 8 poses against its own plain-version reference
+               run (phase 3); B2 must launch on every path, B1 on ndt and
+               voxel_hash and not on features (kNN normals)
+Then the `kernels` summary line (launches summed over every path), the
+nvidia-smi line, and the final `{"ok": true, ...}` line. The full record also goes to
 chiprun_out/chip_smoke.json.
 """
 import json
@@ -63,6 +74,15 @@ BATCHED_LIMIT_M = 1e-3  # each robot of the batched replay against its single re
 # the kernels each replay launches: B1, B2 (scan, map); B4, B3 (scan, map)
 SINGLE_PATH = ("moments_visits", "nn_visits_scan", "nn_visits_map")
 BATCHED_PATH = ("moments_visits_batched", "nn_visits_batched_scan", "nn_visits_batched_map")
+# the other single-card paths (phase 8) and the kernels each must launch:
+# B2 always, B1 except on features (kNN normals, no radius moments)
+PATHS = {
+    "ndt": SINGLE_PATH,
+    "features": ("nn_visits_scan", "nn_visits_map"),
+    "voxel_hash": SINGLE_PATH,
+}
+PATH_SCANS = 48
+VOXEL_HASH_MAP = "nn_visits_map_voxel_hash"   # the B2 map row on the voxel-hash operand
 
 
 def emit(record: dict) -> None:
@@ -78,6 +98,51 @@ def production_config(cfg_mod):
         filtering=cfg_mod.FilterConfig(normals_k=20),
         mapper=cfg_mod.MapperConfig(map_capacity=1 << 17, keyframe_capacity=4096, map_voxel_leaf=0.15),
     )
+
+
+def path_config(cfg, name):
+    """`cfg` on one of the single-card paths, for the port's LocusConfig or
+    the JAX package's alike (the same field names):
+    gicp       unchanged (GICP in both stages, the ring map, radius normals)
+    ndt        NDT in both stages, irls, direct7 at 1.0 m (the
+               configuration of EVAL_NDT_r05.json)
+    features   the LOAM features at 1800 columns (the sweep's azimuth
+               steps), adaptive covariances in both stages
+               (EVAL_FEATURES_r05.json)
+    voxel_hash the voxel-hash map in place of the ring"""
+    import dataclasses
+
+    rep = dataclasses.replace
+
+    def both_stages(c, **kw):
+        return c.replace(odometry=rep(c.odometry, **kw),
+                         localization=rep(c.localization, registration=rep(c.localization.registration, **kw)))
+
+    if name == "gicp":
+        return cfg
+    if name == "ndt":
+        return both_stages(cfg, registration_method="ndt", ndt_optimizer="irls", ndt_neighborhood="direct7",
+                           ndt_resolution=1.0)
+    if name == "features":
+        return both_stages(cfg.replace(filtering=rep(cfg.filtering, extract_features=True, feature_width=1800)),
+                           covariance_mode="adaptive")
+    if name == "voxel_hash":
+        return cfg.replace(mapper=rep(cfg.mapper, structure="voxel_hash"))
+    raise ValueError(f"unknown path {name!r}")
+
+
+def path_sequence(dataset, name, seq, num_scans=PATH_SCANS):
+    """The replay of a path: `seq`, the production tunnel, except for NDT.
+    NDT at 1.0 m voxels drifts on that tunnel in the JAX package too (ATE
+    0.1024 m on the CPU, `tools/torch_parity.py --config ndt --tunnel
+    production`), so its phase runs on the sequence of its configuration's
+    source, EVAL_NDT_r05.json's world tunnel (tools/eval_suite.py)."""
+    if name == "ndt":
+        return dataset.make_world_sequence("tunnel", num_scans=num_scans, azimuth_steps=900)
+    return seq
+
+
+PATH_SEQUENCE_NAMES = {"ndt": 'make_world_sequence("tunnel", azimuth_steps=900)'}
 
 
 def device_time_ms(torch, fn, reps=20, warmup=3):
@@ -318,6 +383,38 @@ def read_launches(tnn, tmom):
     }
 
 
+def run_path(torch, np, runner, tnn, tmom, cfg, seq, ref_poses, name, dev):
+    """One path's PATH_SCANS-scan replay through the kernels, launch counts
+    of this run only, and its first poses against its plain reference."""
+    from locus_tpu_torch.metrics import ate_rmse
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(tnn, tmom)
+    t0 = time.perf_counter()
+    poses, outputs, report = runner.run_sequence(seq, cfg, max_scans=PATH_SCANS, device=dev)
+    wall = time.perf_counter() - t0
+    launches = read_launches(tnn, tmom)
+    dur = np.asarray(report.durations)
+    window = dur[-RATE_WINDOW:]
+    ate = ate_rmse(poses[:, :3, 3], seq.gt_poses[: poses.shape[0], :3, 3], align=False)
+    ab = np.abs(poses[:REF_SCANS, :3, 3] - ref_poses[:, :3, 3]).max(axis=1)
+    return {
+        "phase": name, "scans": int(poses.shape[0]),
+        "sequence": PATH_SEQUENCE_NAMES.get(name, "make_tunnel_sequence(azimuth_steps=1800, step=0.35, seed=0)"),
+        "scans_per_s_last32": window.size / float(window.sum()),
+        "ms_per_scan_p50_last32": float(np.median(window) * 1e3),
+        "ms_per_scan_max_last32": float(window.max() * 1e3),
+        "first_scan_s": float(dur[0]), "wall_s": wall, "ate_m": ate,
+        "ab_scans": REF_SCANS, "ab_max_translation_m": float(ab.max()), "ab_per_scan_m": ab.tolist(),
+        "ab_max_rotation_entry": float(np.abs(poses[:REF_SCANS, :3, :3] - ref_poses[:, :3, :3]).max()),
+        "launches": launches, "launches_per_scan": {k: v / poses.shape[0] for k, v in launches.items()},
+        "keyframes": int(sum(o["keyframe_inserted"] for o in outputs)),
+        "final_map_size": outputs[-1]["map_size"], "mean_points": float(np.mean([o["num_points"] for o in outputs])),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -343,6 +440,7 @@ def main() -> int:
     import numpy as np
 
     from locus_tpu_torch import config as cfg_mod, pipeline, runner
+    from locus_tpu_torch.io import dataset
     from locus_tpu_torch.io.dataset import make_tunnel_sequence
     from locus_tpu_torch.metrics import RateReport, ate_rmse
     from locus_tpu_torch.ops import dispatch
@@ -395,9 +493,19 @@ def main() -> int:
         ref_states, _ = runner.make_batched_replay(cfg, use_pallas=False)(
             pipeline.init_states(cfg, init_poses, device=dev), first_ticks
         )
+        batched_s = time.perf_counter() - t0
+        path_refs, path_seqs, path_s = {}, {}, {}
+        for name in PATHS:
+            t0 = time.perf_counter()
+            path_seqs[name] = path_sequence(dataset, name, seq)
+            with dispatch.no_kernels():
+                path_refs[name] = runner.run_sequence(
+                    path_seqs[name], path_config(cfg, name), max_scans=REF_SCANS, return_state=True, device=dev
+                )
+            path_s[name] = time.perf_counter() - t0
         record["reference"] = {
             "phase": "reference", "scans": REF_SCANS, "seconds": single_s, "data_seconds": data_s,
-            "batched_ticks": REF_SCANS, "batched_seconds": time.perf_counter() - t0,
+            "batched_ticks": REF_SCANS, "batched_seconds": batched_s, "path_seconds": path_s,
         }
         emit(record["reference"])
 
@@ -407,13 +515,21 @@ def main() -> int:
         pcb = scan_for_checks(torch, cfg, robot_seqs, REF_SCANS, ref_states.voxel_leaf, dev)
         ok_batched, batched_results = kernel_checks(torch, tnn, tmom, build, cfg, pcb, ref_states, "_batched")
         results += batched_results
+        # B2 map on the voxel-hash operand: a slot is a hash of its voxel,
+        # so every chunk spans the window and a tile visits every chunk
+        vh_cfg, vh_state = path_config(cfg, "voxel_hash"), path_refs["voxel_hash"][3]
+        pcv = scan_for_checks(torch, cfg, [seq], REF_SCANS, vh_state.voxel_leaf, dev)
+        _, bt, radius, args, query, target = nn_cases(torch, tnn, vh_cfg, pcv, vh_state, "")[1]
+        ok_vh, res_vh = check_nn(torch, tnn, build, VOXEL_HASH_MAP, bt, radius, args, query, target)
+        results.append(res_vh)
         record["kernels"] = {
             "phase": "kernels", "checks": results, "map_points": int(ref_state.map.cloud.mask.sum()),
+            "voxel_hash_map_points": int(vh_state.map.cloud.mask.sum()),
             "batched_map_points": ref_states.map.cloud.mask.sum(-1).tolist(),
             "batched_leaves": ref_states.voxel_leaf.tolist(),
         }
         emit(record["kernels"])
-        if not (ok_single and ok_batched):
+        if not (ok_single and ok_batched and ok_vh):
             raise RuntimeError("a kernel disagrees with its plain version")
 
         # 5. pipeline through the kernels, launch counts of this run only
@@ -497,14 +613,40 @@ def main() -> int:
             raise RuntimeError(f"batched launches per tick are not B4 = B3-at-BT = 1: {blaunches}")
         if any(blaunches[k] for k in SINGLE_PATH):
             raise RuntimeError(f"the batched replay launched a single-member kernel: {blaunches}")
+
+        # 8. the other single-card paths through the kernels; every path
+        # runs, then any path's failure fails the script
+        problems = []
+        for name, expected in PATHS.items():
+            record[name] = run_path(torch, np, runner, tnn, tmom, path_config(cfg, name), path_seqs[name],
+                                    path_refs[name][0], name, dev)
+            emit(record[name])
+            launches, ate = record[name]["launches"], record[name]["ate_m"]
+            if min(launches[k] for k in expected) <= 0:
+                problems.append(f"{name}: the path did not launch {expected}: {launches}")
+            if name == "features" and launches["moments_visits"]:
+                problems.append(f"features: kernel B1 launched on the kNN-normals path: {launches}")
+            if any(launches[k] for k in BATCHED_PATH):
+                problems.append(f"{name}: a batched kernel launched on a single path: {launches}")
+            if not np.isfinite(ate) or ate > ATE_LIMIT_M:
+                problems.append(f"{name}: ATE {ate} m exceeds {ATE_LIMIT_M} m")
+            if record[name]["ab_max_translation_m"] > AB_LIMIT_M:
+                problems.append(f"{name}: kernels and plain versions differ by {record[name]['ab_max_translation_m']} m")
+        if problems:
+            raise RuntimeError("; ".join(problems))
     except Exception:
         traceback.print_exc()
         emit({"phase": "failed", "completed": list(record)})
         return 1
 
-    # B1/B2 from the single replay, B3/B4 from the batched one; B5/B6 and
-    # B3 at B = 16 lie on no path and launch in neither
-    counts = record["pipeline"]["launches"] | {k: record["batched"]["launches"][k] for k in BATCHED_PATH}
+    # B1/B2 summed over the single paths (the ring-map B2 rows over the
+    # paths with a ring map, the voxel-hash row over its own), B3/B4 from
+    # the batched replay; B5/B6 and B3 at B = 16 lie on no path
+    single = ("pipeline",) + tuple(PATHS)
+    counts = {k: sum(record[p]["launches"][k] for p in single) for k in SINGLE_PATH}
+    counts["nn_visits_map"] -= record["voxel_hash"]["launches"]["nn_visits_map"]
+    counts[VOXEL_HASH_MAP] = record["voxel_hash"]["launches"]["nn_visits_map"]
+    counts |= {k: record["batched"]["launches"][k] for k in BATCHED_PATH}
     summary = [
         {k: v for k, v in r.items() if k in (
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",

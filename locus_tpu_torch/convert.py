@@ -12,6 +12,8 @@ function imports JAX: they read plain attributes.
 
 Layouts that differ: the map's cached 1-NN operand is (8, m_pad) in the
 JAX package (rows -2x, -2y, -2z, |t|^2, then zeros) and (m_pad, 4) here.
+The map may be either structure: a ring `MapState` or a voxel-hash
+`HashMapState` (told apart by its `keys` field).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from locus_tpu_torch import config as cfg_mod
 from locus_tpu_torch import fusion, localization, odometry, pipeline
 from locus_tpu_torch.core.cloud import PointCloud
 from locus_tpu_torch.mapping.keyframe_map import MapState
+from locus_tpu_torch.mapping.voxel_hash_map import HashMapState
 
 
 def _build_dataclass(cls, d: dict):
@@ -70,7 +73,7 @@ def state_from_numpy(tree, device) -> pipeline.LocusState:
     jmap = tree.map
     nn_aug = np.swapaxes(np.asarray(jmap.nn_aug)[..., :4, :], -1, -2)   # (..., m_pad, 4)
     map_state = _tuple(
-        MapState, jmap, dev,
+        HashMapState if hasattr(jmap, "keys") else MapState, jmap, dev,
         cloud=lambda c: _cloud(c, dev),
         nn_aug=lambda _: _tensor(np.ascontiguousarray(nn_aug), dev),
     )

@@ -26,6 +26,38 @@ def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.take_along_dim(x, idx[..., None], dim=-2)
 
 
+def last_writes(idx: torch.Tensor, size: int) -> torch.Tensor:
+    """(K,) bool: which of K writes to rows `idx` of a `size`-row array are
+    the last write to their row. XLA's scatter on the CPU applies its
+    updates in order, so the last write wins; CUDA's `index_put_` picks an
+    arbitrary one. The winner here is the largest write position (an
+    integer max, the same on every device). Writes outside [0, size) are
+    dropped (False)."""
+    pos = torch.arange(idx.shape[0], device=idx.device)
+    safe = torch.where((idx >= 0) & (idx < size), idx.to(torch.int64), size)
+    last = torch.full((size + 1,), -1, dtype=torch.int64, device=idx.device)
+    last.scatter_reduce_(0, safe, pos, "amax")
+    return (safe < size) & (torch.gather(last, 0, safe) == pos)
+
+
+def put_rows(dst: torch.Tensor, rows: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """`dst` with rows `rows` (K,) set to `src` (K, ...) or a scalar, where
+    no row in [0, len(dst)) repeats; rows equal to len(dst) are dropped."""
+    n = dst.shape[0]
+    out = torch.cat([dst, dst.new_zeros((1,) + dst.shape[1:])])
+    out.index_copy_(0, rows, src.to(dst.dtype).expand((rows.shape[0],) + dst.shape[1:]))
+    return out[:n]   # the scratch row n took the dropped writes
+
+
+def scatter_rows(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """`dst` with rows `idx` (K,) set to `src` (K, ...): JAX's
+    `dst.at[idx].set(src, mode="drop")` on the CPU. Rows outside the array
+    are dropped; where several writes hit one row the last one wins
+    (`last_writes`), so the result is the same on the CPU and the card."""
+    n = dst.shape[0]
+    return put_rows(dst, torch.where(last_writes(idx, n), idx.to(torch.int64), n), src)
+
+
 class PointCloud(NamedTuple):
     """xyz (...,N,3) f32 (PAD_COORD on invalid lanes), normals (...,N,3) f32
     (zero on invalid lanes), intensity (...,N) f32, mask (...,N) bool."""

@@ -1,7 +1,6 @@
 """Mapper structure registry (counterpart of
-`locus_tpu/mapping/registry.py`, the reference's `mapperFabric`). This
-slice provides the ring map; the voxel-hash map comes with ROADMAP item
-A12."""
+`locus_tpu/mapping/registry.py`, the reference's `mapperFabric`): the ring
+map and the voxel-hash map."""
 from __future__ import annotations
 
 from locus_tpu_torch.config import MapperConfig
@@ -15,5 +14,7 @@ def mapper_fabric(cfg_or_name):
 
         return keyframe_map
     if name == "voxel_hash":
-        raise NotImplementedError("voxel-hash map: ROADMAP A12")
+        from locus_tpu_torch.mapping import voxel_hash_map
+
+        return voxel_hash_map
     raise ValueError(f"unknown mapper structure {name!r}; expected 'ring' or 'voxel_hash'")

@@ -1,10 +1,12 @@
 """Per-point normal estimation by local PCA (counterpart of
 `locus_tpu/ops/normals.py`).
 
-Fixed-radius neighbourhood moments come from kernel B1
-(`ops/kernels/moments.py`); a closed-form symmetric 3x3 eigendecomposition
-gives the normal. This slice ports the radius path; the kNN path
-(`estimate_normals`) comes with ROADMAP item A11.
+Two paths: fixed-radius neighbourhood moments from kernel B1
+(`ops/kernels/moments.py`, `estimate_normals_radius`, the default) and the
+k nearest neighbours of `ops/neighbors.knn` (`estimate_normals`, plain
+PyTorch as the JAX package's is XLA; the LOAM feature path and the
+ground-truth map use it). A closed-form symmetric 3x3 eigendecomposition
+gives the normal.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import math
 import torch
 
 from locus_tpu_torch.core.cloud import PointCloud
+from locus_tpu_torch.ops import neighbors
 
 _EPS = 1e-12
 
@@ -145,4 +148,33 @@ def estimate_normals_radius(
     ok = cloud.mask & (count >= float(min_neighbors))
     s = torch.where(ok, sign, 0.0)
     normal = torch.stack([vx * s, vy * s, vz * s], dim=-1)
+    return PointCloud(cloud.xyz, normal, cloud.intensity, cloud.mask)
+
+
+def knn_covariance(xyz: torch.Tensor, mask: torch.Tensor, k: int) -> torch.Tensor:
+    """(N,3,3) covariance of each point's k nearest valid neighbours
+    (itself included), the shared first half of the kNN normals and the
+    GICP `recompute`/`adaptive` covariances."""
+    _, idx = neighbors.knn(xyz, xyz, k=k)
+    nbr = neighbors.gather_knn(xyz, idx)                 # (N, k, 3)
+    nbr_mask = mask[idx]
+    w = nbr_mask.to(torch.float32)
+    denom = torch.clamp(torch.sum(w, dim=1), min=1.0)
+    nbr_safe = torch.where(nbr_mask[..., None], nbr, 0.0)
+    mean = torch.sum(nbr_safe * w[..., None], dim=1) / denom[:, None]
+    centered = torch.where(nbr_mask[..., None], nbr - mean[:, None, :], 0.0)
+    return torch.einsum("nki,nkj->nij", centered, centered) / denom[:, None, None]
+
+
+def estimate_normals(cloud: PointCloud, k: int = 20, viewpoint=(0.0, 0.0, 0.0)) -> PointCloud:
+    """PCA normals from the k nearest neighbours, oriented toward
+    `viewpoint` (PCL flips normals so n . (vp - p) >= 0). The eigenvector
+    is solved in float64, as in `estimate_normals_radius`."""
+    cov = knn_covariance(cloud.xyz, cloud.mask, k)
+    _, normal = smallest_eigenvector_sym3x3(cov.double())
+    normal = normal.float()
+    vp = torch.as_tensor(viewpoint, dtype=torch.float32, device=cloud.xyz.device)
+    flip = torch.sum(normal * (vp - cloud.xyz), dim=-1) < 0.0
+    normal = torch.where(flip[:, None], -normal, normal)
+    normal = torch.where(cloud.mask[:, None], normal, 0.0)
     return PointCloud(cloud.xyz, normal, cloud.intensity, cloud.mask)

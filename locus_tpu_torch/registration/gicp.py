@@ -2,10 +2,13 @@
 `locus_tpu/registration/gicp.py`), production disk-covariance path.
 
 Objective: min_x sum_i r_i^T M_i r_i with M_i = (C2_j + R C1_i R^T)^{-1},
-r_i = T(x) p_i - q_j, each covariance a plane disk I - (1-eps) n n^T built
-from the normals. Per outer iteration the correspondences come from the
-radius-bounded 1-NN (kernel B2 at SCAN_BT), then `inner_iterations`
-Gauss-Newton steps on the SE(3) tangent with M and the pairs fixed.
+r_i = T(x) p_i - q_j. In the production mode ("normals") each covariance
+is a plane disk I - (1-eps) n n^T built from the normals and no 3x3 matrix
+is formed; the "recompute" and "adaptive" modes (and caller-supplied
+covariances) carry (N,3,3) covariances from a k-NN PCA. Per outer
+iteration the correspondences come from the radius-bounded 1-NN (kernel
+B2 at SCAN_BT), then `inner_iterations` Gauss-Newton steps on the SE(3)
+tangent with M and the pairs fixed.
 
 Loop control: the JAX package runs the outer loop as a `lax.while_loop`
 on a device-side test and the final re-lookup under `lax.cond`. Here both
@@ -22,8 +25,8 @@ once for all members (B3; B2 on the single path). The Gauss-Newton sums
 are pairwise (`tree_sum`) and the small products written out
 (`se3.matmul`), so that a member rounds exactly as its single run does.
 
-The `recompute` and `adaptive` covariance modes and caller-supplied
-covariances come with ROADMAP item A11 (they need kNN) and raise here.
+The covariance modes other than "normals" and explicit covariances run
+on the single path only (the batched step raises for them, ROADMAP A15b).
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import torch
 from locus_tpu_torch.config import RegistrationConfig
 from locus_tpu_torch.core.cloud import PointCloud, take_rows
 from locus_tpu_torch.geometry import se3
+from locus_tpu_torch.ops.normals import eigh_sym3x3, knn_covariance, smallest_eigenvector_sym3x3
 from locus_tpu_torch.ops.kernels.nn import (
     SCAN_BT,
     build_nn_target,
@@ -51,6 +55,52 @@ class GICPResult(NamedTuple):
     correspondences: torch.Tensor  # (N,) int64 target index per source point
     corr_mask: torch.Tensor        # (N,) bool valid & gated correspondences
     num_correspondences: torch.Tensor  # int32
+
+
+def covariance_from_normals(normals: torch.Tensor, epsilon: float) -> torch.Tensor:
+    """Plane-disk covariance from unit normals: eigenvalues (1, 1, eps)
+    with eps along the normal, C = I - (1-eps) n n^T."""
+    eye = torch.eye(3, dtype=normals.dtype, device=normals.device)
+    return eye - (1.0 - epsilon) * (normals[..., :, None] * normals[..., None, :])
+
+
+def covariance_adaptive(xyz: torch.Tensor, mask: torch.Tensor, k: int, epsilon: float) -> torch.Tensor:
+    """Structure-adaptive covariance: the k-NN PCA eigenvalues normalised
+    by the largest and floored at eps, so planes become disks (1,1,eps),
+    edges sticks (1,eps,eps), and corners stay isotropic (the LOAM feature
+    clouds' mode)."""
+    eigvals, eigvecs = eigh_sym3x3(knn_covariance(xyz, mask, k))
+    lam_max = torch.clamp(eigvals[:, 2], min=1e-12)
+    lam_reg = torch.clamp(eigvals / lam_max[:, None], epsilon, 1.0)
+    return torch.einsum("nik,nk,njk->nij", eigvecs, lam_reg, eigvecs)
+
+
+def covariance_from_neighborhood(xyz: torch.Tensor, mask: torch.Tensor, k: int, epsilon: float) -> torch.Tensor:
+    """The recompute mode (gicp.hpp:89-156): the disk covariance of the
+    k-NN PCA normal, singular values regularised to (1, 1, eps)."""
+    _, normal = smallest_eigenvector_sym3x3(knn_covariance(xyz, mask, k))
+    return covariance_from_normals(normal, epsilon)
+
+
+def inv3x3(A: torch.Tensor, ridge: float = 1e-6) -> torch.Tensor:
+    """Closed-form (adjugate) inverse of (..,3,3) symmetric matrices."""
+    comps = _inv_sym3(_sym3_from_mats(A), ridge)
+    return torch.stack([comps[i] for i in (0, 1, 2, 1, 3, 4, 2, 4, 5)], dim=-1).unflatten(-1, (3, 3))
+
+
+def _sym3_from_mats(C: torch.Tensor):
+    """(...,3,3) -> the six components (m00, m01, m02, m11, m12, m22)."""
+    return (C[..., 0, 0], C[..., 0, 1], C[..., 0, 2], C[..., 1, 1], C[..., 1, 2], C[..., 2, 2])
+
+
+def _sym3_vec(M, vx, vy, vz):
+    """M @ v for a symmetric M in components and a vector in components."""
+    m00, m01, m02, m11, m12, m22 = M
+    return (
+        m00 * vx + m01 * vy + m02 * vz,
+        m01 * vx + m11 * vy + m12 * vz,
+        m02 * vx + m12 * vy + m22 * vz,
+    )
 
 
 def _sym3_two_disks(a: torch.Tensor, b: torch.Tensor, epsilon: float):
@@ -171,10 +221,23 @@ def gicp_register(
     mode = cfg.covariance_mode
     if cfg.recompute_covariances and mode == "normals":
         mode = "recompute"
-    if mode != "normals" or source_cov is not None or target_cov is not None:
-        raise NotImplementedError(
-            f"GICP covariance mode {mode!r} / explicit covariances: ROADMAP A11"
-        )
+    # the production path keeps only the normals and builds M on the fly
+    disk_path = mode == "normals" and source_cov is None and target_cov is None
+
+    def make_cov(cloud):
+        if mode == "recompute":
+            return covariance_from_neighborhood(cloud.xyz, cloud.mask, cfg.k_correspondences, cfg.gicp_epsilon)
+        if mode == "adaptive":
+            return covariance_adaptive(cloud.xyz, cloud.mask, cfg.k_correspondences, cfg.gicp_epsilon)
+        return covariance_from_normals(cloud.normals, cfg.gicp_epsilon)
+
+    if not disk_path:
+        if source.mask.dim() != 1:
+            raise NotImplementedError(
+                f"batched GICP with covariance mode {mode!r} or explicit covariances: ROADMAP A15b"
+            )
+        source_cov = make_cov(source) if source_cov is None else source_cov
+        target_cov = make_cov(target) if target_cov is None else target_cov
     dev = source.xyz.device
     lead = source.mask.shape[:-1]
     if guess is None:
@@ -215,10 +278,16 @@ def gicp_register(
         d2, j = nearest_fn(p)
         w = (source.mask & take_rows(target.mask, j) & (d2 <= corr_dist2)).to(torch.float32)
         q = take_rows(target.xyz, j)
-        # A = C2 + R C1 R^T = (I - k m m^T) + (I - k (Rn)(Rn)^T)
-        A = _sym3_two_disks(
-            se3.rotate_vectors(T, src0_normals), take_rows(target.normals, j), cfg.gicp_epsilon
-        )
+        if disk_path:
+            # A = C2 + R C1 R^T = (I - k m m^T) + (I - k (Rn)(Rn)^T)
+            A = _sym3_two_disks(
+                se3.rotate_vectors(T, src0_normals), take_rows(target.normals, j), cfg.gicp_epsilon
+            )
+        else:
+            # as in the JAX function: the source's own covariances (not
+            # pre-warped by the guess), rotated by the iterated transform
+            R = se3.rotation(T)
+            A = _sym3_from_mats(target_cov[j] + R @ source_cov @ R.transpose(-1, -2))
         M = _inv_sym3(A)
         T_new = T
         for _ in range(cfg.inner_iterations):

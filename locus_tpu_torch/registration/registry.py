@@ -1,25 +1,27 @@
 """Registration method registry (counterpart of
-`locus_tpu/registration/registry.py`). This slice registers GICP; NDT
-comes with ROADMAP item A10."""
+`locus_tpu/registration/registry.py`): "gicp" and "ndt"."""
 from __future__ import annotations
 
 from typing import Callable
 
 from locus_tpu_torch.config import RegistrationConfig
 
+METHODS = ("gicp", "ndt")
+
 
 def make_registrar(cfg: RegistrationConfig) -> Callable:
     """Returns align(source, target, guess) -> GICPResult for the
     configured method."""
-    if cfg.registration_method == "ndt":
-        raise NotImplementedError("NDT registration: ROADMAP A10")
-    if cfg.registration_method != "gicp":
+    if cfg.registration_method == "gicp":
+        from locus_tpu_torch.registration.gicp import gicp_register as register
+    elif cfg.registration_method == "ndt":
+        from locus_tpu_torch.registration.ndt import ndt_register as register
+    else:
         raise ValueError(
-            f"Unknown registration method {cfg.registration_method!r}; available: ['gicp']"
+            f"Unknown registration method {cfg.registration_method!r}; available: {list(METHODS)}"
         )
-    from locus_tpu_torch.registration.gicp import gicp_register
 
     def align(source, target, guess=None, **kw):
-        return gicp_register(source, target, guess=guess, cfg=cfg, **kw)
+        return register(source, target, guess=guess, cfg=cfg, **kw)
 
     return align

@@ -118,10 +118,23 @@ def test_padding_invariance():
 
 
 def test_registry_and_unported_modes():
+    """Both registration methods resolve; the covariance modes other than
+    the disk path run single only (the batched step is ROADMAP A15b)."""
+    import torch
+
+    from locus_tpu_torch.registration.ndt import ndt_register
+
     src = torch_cloud(_cube(capacity=256, step=0.25))
     res = make_registrar(TRC())(src, src)
     np.testing.assert_allclose(np_(res.transform), np.eye(4), atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        make_registrar(TRC(registration_method="ndt"))
-    with pytest.raises(NotImplementedError):
-        tgicp(src, src, cfg=TRC(covariance_mode="adaptive"))
+    res = make_registrar(TRC(registration_method="ndt", ndt_resolution=0.5))(src, src)
+    assert np.isfinite(np_(res.transform)).all()
+    res = tgicp(src, src, cfg=TRC(covariance_mode="adaptive"))
+    np.testing.assert_allclose(np_(res.transform), np.eye(4), atol=1e-5)
+    batched = type(src)(*(torch.stack([a, a]) for a in src))
+    with pytest.raises(NotImplementedError, match="A15b"):
+        tgicp(batched, batched, cfg=TRC(covariance_mode="adaptive"))
+    with pytest.raises(NotImplementedError, match="A15b"):
+        ndt_register(batched, batched, cfg=TRC(registration_method="ndt"))
+    with pytest.raises(ValueError):
+        make_registrar(TRC(registration_method="icp"))

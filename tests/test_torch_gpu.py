@@ -463,3 +463,153 @@ def test_batched_replay_matches_single_on_the_card(cuda_device):
     assert tnn.batched_launches[tnn.SCAN_BT] > before[tnn.SCAN_BT]
     for b in range(len(seqs)):
         np.testing.assert_array_equal(np_(poses[:, b]), ref[b])
+
+
+# -- the other single-card paths: NDT, the voxel-hash map, LOAM features --
+
+def _path_cfg(name):
+    """_small_cfg on one of the single-card paths (chip_smoke.path_config)."""
+    import dataclasses
+
+    rep = dataclasses.replace
+    cfg = _small_cfg()
+
+    def both(c, **kw):
+        return c.replace(odometry=rep(c.odometry, **kw),
+                         localization=rep(c.localization, registration=rep(c.localization.registration, **kw)))
+
+    if name == "ndt":
+        return both(cfg, registration_method="ndt")
+    if name == "features":
+        return both(cfg.replace(filtering=rep(cfg.filtering, extract_features=True, feature_width=256)),
+                    covariance_mode="adaptive")
+    return cfg.replace(mapper=rep(cfg.mapper, structure="voxel_hash"))
+
+
+def _room(device, seed=3, shift=(0.12, -0.06, 0.04)):
+    from locus_tpu_torch.io import synthetic
+
+    xyz, nrm = synthetic.hollow_cube(step=0.15, side=4.0, jitter=0.01, seed=seed)
+    target = PointCloud.from_points(xyz, capacity=2048, normals=nrm, device=device)
+    src = torch.where(target.mask[:, None], target.xyz - torch.tensor(shift, device=device), target.xyz)
+    return PointCloud(src, target.normals, target.intensity, target.mask), target
+
+
+@pytest.mark.parametrize("optimizer", ["irls", "newton"])
+def test_ndt_on_the_card_matches_the_cpu(cuda_device, optimizer):
+    """ndt_register (irls; newton with the Moré–Thuente search) on the card
+    against the CPU port: transform within 1e-4 m / 1e-4 rad (exp, sums and
+    solves round differently on the two devices), the same iterations, and
+    the final pass through kernel B2 at SCAN_BT."""
+    from locus_tpu_torch.registration.ndt import ndt_register
+
+    cfg = cfg_mod.RegistrationConfig(registration_method="ndt", ndt_resolution=1.0, iterations=30,
+                                     ndt_optimizer=optimizer)
+    src, tgt = _room(cuda_device)
+    before = tnn.launches[tnn.SCAN_BT]
+    card = ndt_register(src, tgt, cfg=cfg)
+    assert tnn.launches[tnn.SCAN_BT] == before + 1
+    cpu = ndt_register(PointCloud(*(a.cpu() for a in src)), PointCloud(*(a.cpu() for a in tgt)), cfg=cfg)
+    d = np_(card.transform) - np_(cpu.transform)
+    assert np.abs(d[:3, 3]).max() < 1e-4 and np.abs(d[:3, :3]).max() < 1e-4, d
+    assert int(card.iterations) == int(cpu.iterations)
+    np.testing.assert_array_equal(np_(card.corr_mask), np_(cpu.corr_mask))
+
+
+def _keyframes(device, n=4, capacity=1024):
+    """Voxelised tunnel scans at a 0.05 m leaf moved along the tunnel: many
+    points of one 0.1 m map voxel in each keyframe."""
+    seq = make_tunnel_sequence(num_scans=n, azimuth_steps=450, step=0.3, seed=4)
+    out = []
+    for i in range(n):
+        xyz = seq.scans[i][seq.scan_valid[i]].astype(np.float32)
+        T = seq.gt_poses[i].astype(np.float32)
+        pc = PointCloud.from_points(xyz @ T[:3, :3].T + T[:3, 3], capacity=max(capacity, xyz.shape[0]), device=device)
+        out.append(voxel.voxel_downsample(pc, 0.05, capacity=capacity, with_attributes=False))
+    return out
+
+
+@pytest.mark.parametrize("map_capacity", [8192, 512])
+def test_voxel_hash_on_the_card_matches_the_cpu(cuda_device, map_capacity):
+    """Inserts (several points per new voxel, and at 512 slots collisions
+    everywhere) and a refresh on the card give the CPU's store exactly:
+    the winner of a slot written several times is picked the same way."""
+    from locus_tpu_torch.mapping import voxel_hash_map as vh
+
+    mcfg = cfg_mod.MapperConfig(map_capacity=map_capacity, keyframe_capacity=1024, map_voxel_leaf=0.1)
+    card, cpu = vh.init_map(mcfg), vh.init_map(mcfg, device="cpu")
+    assert card.nn_aug.is_cuda
+    for kf in _keyframes(cuda_device):
+        card = vh.insert_keyframe(card, kf, mcfg)
+        cpu = vh.insert_keyframe(cpu, PointCloud(*(a.cpu() for a in kf)), mcfg)
+    for stage in ("insert", "refresh"):
+        for a, b in zip(card, cpu):
+            for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+                np.testing.assert_array_equal(np_(x), np_(y), err_msg=stage)
+        pos = torch.tensor([1.0, 0.0, 0.0])
+        card = vh.refresh_msw(card, pos.to(cuda_device), mcfg)
+        cpu = vh.refresh_msw(cpu, pos, mcfg)
+
+
+def test_nn_kernel_on_the_voxel_hash_operand_matches_plain(cuda_device):
+    """Kernel B2 at BT on the voxel-hash map's operand, where every chunk
+    spans the window so a tile visits (nearly) every chunk: score bits and
+    index equal to the plain version's."""
+    from locus_tpu_torch.mapping import voxel_hash_map as vh
+
+    mcfg = cfg_mod.MapperConfig(map_capacity=1 << 15, keyframe_capacity=4096, map_voxel_leaf=0.1)
+    st = vh.init_map(mcfg)
+    kfs = _keyframes(cuda_device, n=4, capacity=4096)
+    for kf in kfs:
+        st = vh.insert_keyframe(st, kf, mcfg)
+    q = kfs[-1].xyz + torch.tensor([0.03, -0.02, 0.01], device=cuda_device)
+    cnt, ids = tnn.visit_lists(*tnn.tile_boxes(q), st.chunk_min, st.chunk_max, 2.0 * 2.0)
+    num_chunks = st.nn_aug.shape[0] // tnn.BT
+    assert float(cnt.float().mean()) > 0.9 * num_chunks
+    qp = tnn.pack_query(q)
+    before = tnn.launches[tnn.BT]
+    kd, ki = tnn.nn_visits(cnt, ids, qp, st.nn_aug, tnn.BT)
+    torch.cuda.synchronize()
+    assert tnn.launches[tnn.BT] == before + 1
+    pd, pi = tnn.nn_visits_plain(cnt, ids, qp, st.nn_aug, tnn.BT)
+    np.testing.assert_array_equal(np_(kd).view(np.int32), np_(pd).view(np.int32))
+    np.testing.assert_array_equal(np_(ki), np_(pi))
+
+
+def test_features_and_knn_normals_on_the_card_match_the_cpu(cuda_device):
+    """The LOAM extractor on the card labels as on the CPU (bin-centred
+    sweep); kNN normals within 1e-4 where the normal is defined to f32
+    precision (the distance matrices round differently on the two
+    devices)."""
+    from locus_tpu_torch.ops import features, normals
+
+    seq = make_tunnel_sequence(num_scans=1, azimuth_steps=450, step=0.3, seed=3)
+    xyz = seq.scans[0][seq.scan_valid[0]].astype(np.float32)
+    cpu = PointCloud.from_points(xyz, capacity=8192)
+    card = PointCloud(*(a.to(cuda_device) for a in cpu))
+    fc, fg = features.extract_features(cpu, width=450), features.extract_features(card, width=450)
+    for f in ("valid", "label", "src_idx", "xyz"):
+        np.testing.assert_array_equal(np_(getattr(fg, f)), np_(getattr(fc, f)), err_msg=f)
+    pc = voxel.voxel_downsample(cpu, 0.2, capacity=2048, with_attributes=False)
+    nc = normals.estimate_normals(pc, k=20)
+    ng = normals.estimate_normals(PointCloud(*(a.to(cuda_device) for a in pc)), k=20)
+    lam = np.linalg.eigvalsh(np_(normals.knn_covariance(pc.xyz, pc.mask, 20)).astype(np.float64))
+    defined = np_(pc.mask) & (lam[:, 1] - lam[:, 0] > 1e-2 * lam[:, 2])
+    assert defined.sum() > 0.9 * np_(pc.mask).sum()
+    np.testing.assert_allclose(np_(ng.normals)[defined], np_(nc.normals)[defined], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["ndt", "features", "voxel_hash"])
+def test_paths_on_the_card_match_plain(cuda_device, name):
+    """Each path's replay through the kernels equals its replay through the
+    plain versions on the card, and launches B2 (B1 except on features)."""
+    seq = make_tunnel_sequence(num_scans=5, azimuth_steps=256, step=0.3, seed=1)
+    cfg = _path_cfg(name)
+    tmom.launches = 0
+    before = dict(tnn.launches)
+    poses, _, _ = runner.run_sequence(seq, cfg)
+    assert all(tnn.launches[b] > before[b] for b in before)
+    assert (tmom.launches > 0) == (name != "features")
+    with dispatch.no_kernels():
+        plain, _, _ = runner.run_sequence(seq, cfg, device=cuda_device)
+    np.testing.assert_array_equal(poses, plain)

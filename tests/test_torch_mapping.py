@@ -138,9 +138,10 @@ def test_disabled_insert_and_refresh_are_noops():
 
 
 def test_mapper_fabric():
+    from locus_tpu_torch.mapping import voxel_hash_map
+
     assert mapper_fabric(TMC()) is tkm
     assert mapper_fabric("ring") is tkm
-    with pytest.raises(NotImplementedError):
-        mapper_fabric("voxel_hash")
+    assert mapper_fabric("voxel_hash") is voxel_hash_map
     with pytest.raises(ValueError):
         mapper_fabric("octree3000")

@@ -7,15 +7,22 @@
     synthetic tunnel.
 (c) JAX runs 4 scans; its state goes through convert.state_from_numpy;
     the port runs 4 more and is held against JAX's scans 5 to 8.
+(d) The other single-card configurations on (b)'s tunnel: NDT in both
+    stages, the LOAM features with adaptive covariances in both stages,
+    the voxel-hash map, keyframes at map resolution, and the grid,
+    outlier and radius filters; the in-graph space monitor scan by scan;
+    and the ground-truth-map bootstrap from a PCD.
 
-Tolerances of (b) and (c): pose within 1e-2 m and 1e-2 rad per scan,
+Tolerances of (b), (c) and (d): pose within 1e-2 m and 1e-2 rad per scan,
 keyframe decisions equal, map size within 0.5 %. The pose tolerance is
 what f32 allows on this sequence, not what the port would like: in
 several scans the scan-to-submap GICP ends on its iteration cap without
 converging, and where it ends then depends on rounding; thin
 neighbourhoods give normals that f32 cannot resolve. The JAX package's
 own two paths (XLA and Pallas, which differ only in such rounding)
-disagree by 6.2e-3 m on (b)'s sequence.
+disagree by 6.2e-3 m on (b)'s sequence. The random filter draws from
+torch's generator, not the JAX PRNG, so (d) runs the grid, outlier and
+radius filters without it (test_torch_filters.py holds it statistically).
 """
 import dataclasses
 import os
@@ -53,6 +60,31 @@ def _port_seq(seq):
 @pytest.fixture(scope="module")
 def tunnel():
     return make_tunnel_sequence(num_scans=12, azimuth_steps=256, step=0.3, seed=1)
+
+
+R = dataclasses.replace
+
+
+def _both_stages(cfg, **kw):
+    return cfg.replace(odometry=R(cfg.odometry, **kw),
+                       localization=R(cfg.localization, registration=R(cfg.localization.registration, **kw)))
+
+
+def _config(name):
+    base = small_cfg(fusion=FusionConfig(data_integration_mode=3))
+    if name == "ndt":
+        return _both_stages(base, registration_method="ndt")
+    if name == "features":
+        base = base.replace(filtering=R(base.filtering, extract_features=True, feature_width=256))
+        return _both_stages(base, covariance_mode="adaptive")
+    if name == "voxel_hash":
+        return base.replace(mapper=R(base.mapper, structure="voxel_hash"))
+    if name == "keyframe_at_map_resolution":
+        return base.replace(mapper=R(base.mapper, keyframe_at_map_resolution=True))
+    assert name == "filters"
+    return base.replace(
+        filtering=R(base.filtering, grid_filter=True, outlier_filter=True, radius_filter=True, radius=0.8, radius_knn=3)
+    )
 
 
 def _assert_poses_close(tp, jp):
@@ -124,18 +156,90 @@ def test_state_conversion_is_exact():
     assert tst.stats.last_seq.dtype == torch.int32 and int(tst.stats.last_seq) == -1
 
 
+@pytest.mark.parametrize("name", ["ndt", "features", "voxel_hash", "keyframe_at_map_resolution", "filters"])
+def test_configuration_matches_jax(tunnel, name):
+    jcfg = _config(name)
+    jp, jo, _ = jrunner.run_sequence(tunnel, jcfg)
+    tp, to, _ = trunner.run_sequence(_port_seq(tunnel), _port_cfg(jcfg), device="cpu")
+    _assert_poses_close(tp, jp)
+    assert [o["keyframe_inserted"] for o in to] == [o["keyframe_inserted"] for o in jo]
+    for a, b in zip(to, jo):
+        assert abs(a["map_size"] - b["map_size"]) <= MAP_SIZE_RTOL * b["map_size"], (a, b)
+        assert a["num_points"] == b["num_points"]
+        assert a["voxel_leaf"] == pytest.approx(b["voxel_leaf"], rel=1e-6)
+
+
+def test_space_monitor_matches_jax(tunnel):
+    """The in-graph space monitor: each scan's xy cross-section within
+    1e-5 relative and the open-space flag equal; with a 100 m^2 threshold
+    the tunnel reads as open space and the open-space keyframe thresholds
+    apply."""
+    base = small_cfg(fusion=FusionConfig(data_integration_mode=3))
+    jcfg = base.replace(b_monitor_space=True, xy_cross_section_threshold=100.0)
+    tcfg = _port_cfg(jcfg)
+    tseq = _port_seq(tunnel)
+    rstep = jrunner.make_replay_step(jcfg)
+    jst = jpl.init_state_from_config(jcfg, initial_pose=jnp.asarray(tunnel.gt_poses[0], jnp.float32))
+    jst = jax.tree_util.tree_map(lambda x: jnp.array(x, copy=True), jst)   # donated leaf by leaf
+    tst = trunner.pipeline.init_state_from_config(tcfg, torch.as_tensor(tunnel.gt_poses[0], dtype=torch.float32), device="cpu")
+    opened = []
+    for i in range(4):
+        args = trunner.scan_inputs(tseq, i, tcfg, "cpu")
+        tst, tout = trunner.replay_step(tst, *args, cfg=tcfg)
+        jst, jout = rstep(jst, *[jnp.asarray(a.numpy()) for a in args])
+        assert float(tout.xy_cross_section) == pytest.approx(float(jout.xy_cross_section), rel=1e-5)
+        assert bool(tst.open_space) == bool(jst.open_space)
+        opened.append(bool(tst.open_space))
+        _assert_poses_close([tout.pose.numpy()], [np.asarray(jout.pose)])
+    assert all(opened)
+
+
+@pytest.mark.parametrize("structure", ["ring", "voxel_hash"])
+def test_gt_map_bootstrap_matches_jax(tunnel, tmp_path, structure):
+    """The map from a PCD (no normals: kNN normals), keyframes off: pure
+    localization against the prior map, as in the reference."""
+    from locus_tpu.io.pcd import write_pcd
+
+    world = np.concatenate([
+        seq_xyz @ T[:3, :3].T + T[:3, 3]
+        for seq_xyz, T in ((tunnel.scans[i][tunnel.scan_valid[i]][::3], tunnel.gt_poses[i]) for i in range(0, 12, 3))
+    ]).astype(np.float32)
+    path = tmp_path / "map.pcd"
+    write_pcd(str(path), world)
+    base = small_cfg(fusion=FusionConfig(data_integration_mode=3))
+    jcfg = base.replace(
+        b_run_with_gt_point_cloud=True, gt_point_cloud_filename=str(path), b_add_keyframes_enabled=False,
+        mapper=R(base.mapper, structure=structure),
+    )
+    jp, jo, _ = jrunner.run_sequence(tunnel, jcfg, max_scans=6)
+    tp, to, _ = trunner.run_sequence(_port_seq(tunnel), _port_cfg(jcfg), max_scans=6, device="cpu")
+    _assert_poses_close(tp, jp)
+    assert [o["map_size"] for o in to] == [o["map_size"] for o in jo]
+    assert to[0]["map_size"] == min(world.shape[0], jcfg.mapper.map_capacity)
+
+
 def test_unported_branches_raise():
+    """The sharded map (A16), and the batched step outside the default
+    configuration (A15b), raise."""
     from locus_tpu_torch import pipeline as tpl
 
     base = _port_cfg(small_cfg())
+    with pytest.raises(NotImplementedError, match="A16"):
+        tpl.init_state(base.replace(mapper=R(base.mapper, num_shards=2)), device="cpu")
     for cfg in (
-        base.replace(filtering=dataclasses.replace(base.filtering, extract_features=True)),
-        base.replace(filtering=dataclasses.replace(base.filtering, outlier_filter=True)),
-        base.replace(filtering=dataclasses.replace(base.filtering, normals_method="knn")),
-        base.replace(mapper=dataclasses.replace(base.mapper, structure="voxel_hash")),
-        base.replace(odometry=dataclasses.replace(base.odometry, registration_method="ndt")),
+        base.replace(filtering=R(base.filtering, extract_features=True)),
+        base.replace(filtering=R(base.filtering, outlier_filter=True)),
+        base.replace(filtering=R(base.filtering, normals_method="knn")),
+        base.replace(mapper=R(base.mapper, structure="voxel_hash")),
+        base.replace(odometry=R(base.odometry, registration_method="ndt")),
+        base.replace(odometry=R(base.odometry, covariance_mode="adaptive")),
+        base.replace(mapper=R(base.mapper, keyframe_at_map_resolution=True)),
+        base.replace(b_monitor_space=True),
     ):
-        with pytest.raises(NotImplementedError):
-            state = tpl.init_state(cfg, device="cpu")
-            seq = make_tunnel_sequence(num_scans=1, azimuth_steps=64, seed=0)
-            trunner.replay_step(state, *trunner.scan_inputs(_port_seq(seq), 0, cfg, "cpu"), cfg=cfg)
+        with pytest.raises(NotImplementedError, match="A15b"):
+            tpl.init_states(cfg, num_robots=2, device="cpu")
+        state = tpl.stack_states([tpl.init_state(base, device="cpu")] * 2)
+        seq = make_tunnel_sequence(num_scans=1, azimuth_steps=64, seed=0)
+        args = [torch.stack([a, a]) for a in trunner.scan_inputs(_port_seq(seq), 0, cfg, "cpu")]
+        with pytest.raises(NotImplementedError, match="A15b"):
+            trunner.replay_step(state, *args, cfg=cfg)

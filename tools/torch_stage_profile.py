@@ -16,6 +16,9 @@ and host ops.
     python tools/torch_stage_profile.py [--scans 48] [--traced 8]
         [--robots 1] [--out chiprun_out/stage_profile.json]
 
+With --config ndt|features|voxel_hash it profiles another single-card path
+(chip_smoke.path_config, on chip_smoke.path_sequence's replay).
+
 With --robots B > 1 it profiles the batched step instead: B robots, each
 on its own tunnel (chip_smoke.py's batched phase: steps 0.30, 0.35, ...,
 seeds 0, 1, ...), one batched step per tick; every "per scan" figure is
@@ -68,8 +71,12 @@ def main() -> int:
     ap.add_argument("--scans", type=int, default=48)
     ap.add_argument("--traced", type=int, default=8, help="scans traced at the end of the replay")
     ap.add_argument("--robots", type=int, default=1, help="robots of the batched step (1: the single step)")
+    ap.add_argument("--config", choices=("gicp", "ndt", "features", "voxel_hash"), default="gicp",
+                    help="the single-card path (the batched step runs gicp only)")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "stage_profile.json"))
     args = ap.parse_args()
+    if args.robots > 1 and args.config != "gicp":
+        ap.error("the batched step runs the gicp path only (ROADMAP A15b)")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -78,14 +85,18 @@ def main() -> int:
         print("torch_stage_profile: needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import production_config
+    from chip_smoke import path_config, path_sequence, production_config
     from locus_tpu_torch import config as cfg_mod, pipeline, runner
+    from locus_tpu_torch.io import dataset
     from locus_tpu_torch.io.dataset import make_tunnel_sequence
 
     dev = torch.device("cuda")
-    cfg = production_config(cfg_mod)
+    cfg = path_config(production_config(cfg_mod), args.config)
     if args.robots == 1:
-        seq = make_tunnel_sequence(num_scans=args.scans, azimuth_steps=1800, step=0.35, seed=0)
+        seq = path_sequence(
+            dataset, args.config,
+            make_tunnel_sequence(num_scans=args.scans, azimuth_steps=1800, step=0.35, seed=0), num_scans=args.scans,
+        )
         state = pipeline.init_state_from_config(
             cfg, initial_pose=torch.as_tensor(seq.gt_poses[0], dtype=torch.float32), device=dev
         )
@@ -144,6 +155,7 @@ def main() -> int:
     result = {
         "device": torch.cuda.get_device_name(0),
         "robots": args.robots,
+        "config": args.config,
         "traced_scans": n,
         "untraced_wall_ms_per_scan": untraced_s * 1e3 / n,
         "wall_ms_per_scan": wall_s * 1e3 / n,
@@ -168,7 +180,7 @@ def main() -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
     print(json.dumps({k: result[k] for k in (
-        "device", "robots", "untraced_wall_ms_per_scan", "wall_ms_per_scan", "device_busy_ms_per_scan", "device_idle_share_untraced",
+        "device", "robots", "config", "untraced_wall_ms_per_scan", "wall_ms_per_scan", "device_busy_ms_per_scan", "device_idle_share_untraced",
         "kernel_launches_per_scan", "host_syncs_per_scan", "stages")}))
     return 0
 
