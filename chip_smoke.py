@@ -19,7 +19,8 @@ Phases, each printing one JSON line:
                with CUDA events beside the plain version, a one-call
                PyTorch yardstick where one exists, and the bound from this
                run's visited pairs and the launch floor of the grid and
-               block the wrapper launches (an empty kernel); every kernel
+               block the wrapper launches (an empty kernel; B5/B6 also
+               report their target splits); every kernel
                is held to the plain version's results on every row (B2/B3
                score bits and index, B1/B4-B6 the ten sums). B2 map also
                runs on the voxel-hash operand (from the voxel_hash path's
@@ -320,6 +321,8 @@ def check_moments(torch, tmom, build, query, radius):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": None,
             "floor_ms": floor_ms(torch, build, grid, threads),
         })
+        if kind == "dense":  # each tile's targets over this many blocks, merged in the launch
+            results[-1]["target_splits"] = tmom.DENSE_SPLIT[0]
     for c, v in before.items():
         setattr(tmom, c, v)  # comparison launches are not main-path launches
     # dense (B5/B6) against pruned (B1/B4) counts over the valid queries:

@@ -9,7 +9,7 @@
 //     (|t|^2 - 2 q.t) + |q|^2 <= r^2,
 // the ten raw moments [x, y, z, xx, yy, zz, xy, xz, yz, 1] of the target.
 // The pruned kernels visit only the chunks on each tile's visit list; the
-// dense ones visit every chunk. The Python wrapper (ops/kernels/moments.py)
+// dense ones visit every target. The Python wrapper (ops/kernels/moments.py)
 // builds the visit lists by box pruning and turns the sums into mean and
 // covariance.
 //
@@ -20,124 +20,125 @@
 //
 // Bound on the H100: arithmetic. Each visited (query, target) pair costs
 // 3 multiplies, 4 adds and a compare; each pair inside the radius adds 6
-// products and 10 float64 sums. A staged chunk is read once per block from
+// products and 10 float64 sums. A staged slice is read once per block from
 // device memory (or L2) and served from shared memory to the block's
 // queries.
 //
-// The pruned kernels (B1, B4) have their own design, described above
-// moments_visits_kernel below. The dense ones (B5, B6), on no path:
-// - One block per tile of BQ = 64 queries, SPLIT = 4 threads per query:
-//   256 threads. Thread s of a query scans the chunk targets k = s mod 4
-//   (neighbouring lanes read neighbouring 16-byte words: no bank
-//   conflicts) and keeps its 10 sums in registers.
-// - Each visited chunk (BT float4 words: 8 KB at the pruned MBT = 512,
-//   16 KB at the dense 1024) is staged in shared memory by the whole block.
-// - The 4 partial sums of a query merge by a fixed butterfly of shuffles,
-//   so the result does not depend on the schedule. No atomics.
-// - Each feature is the f32 product the JAX package precomputes
-//   (__fmul_rn: one rounding, no FMA contraction), and the sums run in
-//   float64, where adding f32 values of a neighbourhood is exact in all
-//   but extreme spreads of magnitude. So the result is the same for any
-//   order of summation: the kernel agrees with its plain version (a
-//   float64 matrix product) bit for bit, and the split over 4 lanes
-//   changes nothing. The sums are rounded to f32 once, on output.
-// Both designs:
-// - The gate is evaluated with the plain version's rounding steps, so the
-//   two count the same neighbours, boundary cases included.
-// - The radius, the visit count and the chunk ids come from device
-//   memory, so a launch needs no host synchronisation. No atomics.
+// Each kernel has its own design, described above it below: the pruned
+// one (B1, B4) above moments_visits_kernel, the dense one (B5, B6, on no
+// path) above moments_dense_split_kernel. Both:
+// - Stage the targets 512 at a time (a slice: a pruned chunk, or 128
+//   quads of a dense block's targets) with 16-byte cp.async into two
+//   shared buffers (the next slice loads while this one is summed), and
+//   each target's nine f32 features (__fmul_rn: one rounding, no FMA
+//   contraction, as the JAX package precomputes them) once a block, as
+//   float64 rows.
+// - Gate a warp's 8 queries (an octet) against 4 targets (a quad) at once,
+//   lane (i, k) query i against target k, with the plain version's
+//   rounding steps, so the two count the same neighbours, boundary cases
+//   included; and sum the moments of the pairs inside, on the FP64 tensor
+//   cores where a quad holds one, skipping a quad whose 32 gates all fail
+//   (adding zeros would leave the sums' bits as they are).
+// - Sum in float64, where adding f32 values of a neighbourhood is exact in
+//   all but extreme spreads of magnitude, in an order fixed by the shapes
+//   (never by the schedule), and round to f32 once, on output. So a kernel
+//   agrees with its plain version (a float64 matrix product) bit for bit,
+//   and a member of a batched launch gets the bits of its single launch.
+// - Take the radius (and the visit lists) from device memory, so a launch
+//   needs no host synchronisation. No float atomics.
 //
 // Operands, per member (members contiguous): q (n_pad, 4) float4
 // [x, y, z, |q|^2]; t (m_pad, 4) float4 [x, y, z, |t|^2], padding rows
 // |t|^2 = 1e12 (fail every gate); cnt (G,) int32; ids (G * C,) int32,
 // prefix-packed per tile; r2 one f32 per member. Output: (n_pad, 10) f32
-// raw sums.
+// raw sums. The dense kernels also take scratch for their split partials
+// and the int counters of their merge (see moments_dense_split_kernel).
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int SPLIT = 4;
-constexpr int THREADS = BQ * SPLIT;
+constexpr int BQ = 64;  // queries of a tile (a visit list)
 constexpr int NM = 10;
 
-// Stage chunk `src` (BT targets) in shared memory and add the moments of
-// the targets within the radius to this thread's sums.
-template <int BT>
-__device__ __forceinline__ void accumulate_chunk(float4* chunk, const float4* __restrict__ src,
-                                                 float4 qv, float r2, int tid, int s,
-                                                 double* a) {
-  __syncthreads();  // the previous chunk is fully consumed
-  for (int k = tid; k < BT; k += THREADS) chunk[k] = src[k];
-  __syncthreads();
-  for (int k = s; k < BT; k += SPLIT) {
-    const float4 tv = chunk[k];
-    // ((|t|^2 + qx(-2x)) + qy(-2y)) + qz(-2z), each step rounded as
-    // in the plain version (no FMA contraction), then + |q|^2
-    float sc = __fadd_rn(tv.w, __fmul_rn(qv.x, -2.0f * tv.x));
-    sc = __fadd_rn(sc, __fmul_rn(qv.y, -2.0f * tv.y));
-    sc = __fadd_rn(sc, __fmul_rn(qv.z, -2.0f * tv.z));
-    if (__fadd_rn(sc, qv.w) <= r2) {
-      a[0] += tv.x;
-      a[1] += tv.y;
-      a[2] += tv.z;
-      a[3] += __fmul_rn(tv.x, tv.x);
-      a[4] += __fmul_rn(tv.y, tv.y);
-      a[5] += __fmul_rn(tv.z, tv.z);
-      a[6] += __fmul_rn(tv.x, tv.y);
-      a[7] += __fmul_rn(tv.x, tv.z);
-      a[8] += __fmul_rn(tv.y, tv.z);
-      a[9] += 1.0;
-    }
+constexpr int MBT = 512;          // a staged slice: a pruned chunk, half a dense one
+constexpr int QUARTER = MBT / 4;  // targets of a warp's partial
+constexpr int NF = 9;             // staged feature rows: x y z xx yy zz xy xz yz
+constexpr int FS = MBT + 4;       // feature row stride (float64): conflict-free B loads
+constexpr float PAD_T2 = 1e12f;   // |t|^2 of a padding row (at the origin): fails every gate
+
+// Dynamic shared memory of a block: two float4 slice buffers and the
+// feature rows (the four quarters' partials go over the features once they
+// are consumed).
+constexpr size_t STAGE_SMEM = 2 * MBT * sizeof(float4) + NF * FS * sizeof(double);
+static_assert(4 * BQ * NM <= NF * FS, "the partials fit in the feature rows");
+
+// The first n (<= MBT) float4 of a slice into shared memory by NT threads,
+// with 16-byte cp.async in one commit group: quad e / 4 (4 float4) from
+// src + (e / 4) * STRIDE. The defaults copy one contiguous pruned chunk.
+template <int NT, int STRIDE = 4>
+__device__ __forceinline__ void stage(float4* dst, const float4* src, int tid, int n = MBT) {
+#pragma unroll
+  for (int e = tid; e < n; e += NT) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst + e));
+    const int k = (e >> 2) * STRIDE + (e & 3);  // e itself at STRIDE 4
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src + k) : "memory");
   }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Fixed butterfly over the SPLIT lanes of each query, then one f32
-// rounding per sum.
-__device__ __forceinline__ void write_sums(double* a, int s, float* __restrict__ out) {
-#pragma unroll
-  for (int off = 1; off < SPLIT; off <<= 1) {
-#pragma unroll
-    for (int c = 0; c < NM; ++c) {
-      a[c] += __shfl_xor_sync(0xffffffffu, a[c], off);
-    }
-  }
-  if (s == 0) {
-#pragma unroll
-    for (int c = 0; c < NM; ++c) out[c] = static_cast<float>(a[c]);
-  }
+template <int PENDING>
+__device__ __forceinline__ void wait_staged() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
-// Dense: every chunk, in order (B5, B6).
-template <int BT>
-__global__ void __launch_bounds__(THREADS)
-moments_dense_kernel(const float4* __restrict__ q, const float4* __restrict__ t,
-                     const float* __restrict__ r2p, int num_tiles, int num_chunks,
-                     float* __restrict__ out) {
-  __shared__ float4 chunk[BT];
-  const size_t b = blockIdx.y;
-  const size_t n_pad = (size_t)num_tiles * BQ;
-  q += b * n_pad;
-  t += b * (size_t)num_chunks * BT;
-  out += b * n_pad * NM;
-
-  const int tid = threadIdx.x;
-  const int s = tid % SPLIT;
-  const int row = blockIdx.x * BQ + tid / SPLIT;
-  const float4 qv = q[row];
-  const float r2 = r2p[b];
-
-  double a[NM];
-#pragma unroll
-  for (int c = 0; c < NM; ++c) a[c] = 0.0;
-  for (int c = 0; c < num_chunks; ++c) {
-    accumulate_chunk<BT>(chunk, t + (size_t)c * BT, qv, r2, tid, s, a);
-  }
-  write_sums(a, s, out + (size_t)row * NM);
+// d = a b + d on the FP64 tensor cores: A 8x4 and B 4x8, one element a
+// lane; C/D 8x8, two a lane
+__device__ __forceinline__ void mma_f64(double (&d)[2], double a, double b) {
+  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
+      : "+d"(d[0]), "+d"(d[1])
+      : "d"(a), "d"(b));
 }
 
-constexpr int DENSE_BT = 1024;  // dense chunk (the JAX package's BT)
+// The gate with the plain version's rounding steps: ((|t|^2 + qx(-2x)) +
+// qy(-2y)) + qz(-2z), then + |q|^2 <= r^2; m = [-2x, -2y, -2z, |t|^2]
+// (-2x is exact).
+__device__ __forceinline__ bool inside(float4 qv, float4 m, float r2) {
+  float sc = __fadd_rn(m.w, __fmul_rn(qv.x, m.x));
+  sc = __fadd_rn(sc, __fmul_rn(qv.y, m.y));
+  sc = __fadd_rn(sc, __fmul_rn(qv.z, m.z));
+  return __fadd_rn(sc, qv.w) <= r2;
+}
+
+// Target e of a staged slice: its nine f32 features (__fmul_rn, as in the
+// plain version) into the float64 rows, and its gate operand [-2x, -2y,
+// -2z, |t|^2] over its coordinates. Returns the coordinates.
+__device__ __forceinline__ float4 stage_features(float4* cur, double* feat, int e) {
+  const float4 tv = cur[e];
+  feat[0 * FS + e] = tv.x;
+  feat[1 * FS + e] = tv.y;
+  feat[2 * FS + e] = tv.z;
+  feat[3 * FS + e] = __fmul_rn(tv.x, tv.x);
+  feat[4 * FS + e] = __fmul_rn(tv.y, tv.y);
+  feat[5 * FS + e] = __fmul_rn(tv.z, tv.z);
+  feat[6 * FS + e] = __fmul_rn(tv.x, tv.y);
+  feat[7 * FS + e] = __fmul_rn(tv.x, tv.z);
+  feat[8 * FS + e] = __fmul_rn(tv.y, tv.z);
+  cur[e] = make_float4(-2.0f * tv.x, -2.0f * tv.y, -2.0f * tv.z, tv.w);
+  return tv;
+}
+
+// More than 48 KB of dynamic shared memory needs an opt-in, once per device
+// and kernel (`configured`: one bit per device done)
+template <typename Kernel>
+cudaError_t allow_stage_smem(Kernel* kernel, unsigned& configured) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 32 && configured & (1u << dev))) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(STAGE_SMEM));
+  if (err == cudaSuccess && dev < 32) configured |= 1u << dev;
+  return err;
+}
 
 // ---------------------------------------------------------------------------
 // Pruned kernel (B1, B4).
@@ -182,53 +183,6 @@ constexpr int DENSE_BT = 1024;  // dense chunk (the JAX package's BT)
 // mma, is what keeps the sums cheap. Launch bounds hold the kernel to 42
 // registers (three 512-thread blocks an SM).
 // ---------------------------------------------------------------------------
-constexpr int MBT = 512;          // pruned chunk
-constexpr int QUARTER = MBT / 4;  // targets of a warp's partial
-constexpr int NF = 9;             // staged feature rows: x y z xx yy zz xy xz yz
-constexpr int FS = MBT + 4;       // feature row stride (float64): conflict-free B loads
-constexpr float PAD_T2 = 1e12f;   // |t|^2 of a padding row (at the origin): fails every gate
-
-// Dynamic shared memory of a pruned block: two float4 chunk buffers and
-// the feature rows (the four warps' partials go over the features once they
-// are consumed).
-constexpr size_t VISITS_SMEM = 2 * MBT * sizeof(float4) + NF * FS * sizeof(double);
-static_assert(4 * BQ * NM <= NF * FS, "the partials fit in the feature rows");
-
-// One chunk (MBT float4) into shared memory by NT threads: 16-byte
-// cp.async, one commit group.
-template <int NT>
-__device__ __forceinline__ void stage(float4* dst, const float4* src, int tid) {
-#pragma unroll
-  for (int e = tid; e < MBT; e += NT) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst + e));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src + e) : "memory");
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void wait_staged() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
-// d = a b + d on the FP64 tensor cores: A 8x4 and B 4x8, one element a
-// lane; C/D 8x8, two a lane
-__device__ __forceinline__ void mma_f64(double (&d)[2], double a, double b) {
-  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
-      : "+d"(d[0]), "+d"(d[1])
-      : "d"(a), "d"(b));
-}
-
-// The gate with the plain version's rounding steps: ((|t|^2 + qx(-2x)) +
-// qy(-2y)) + qz(-2z), then + |q|^2 <= r^2; m = [-2x, -2y, -2z, |t|^2]
-// (-2x is exact).
-__device__ __forceinline__ bool inside(float4 qv, float4 m, float r2) {
-  float sc = __fadd_rn(m.w, __fmul_rn(qv.x, m.x));
-  sc = __fadd_rn(sc, __fmul_rn(qv.y, m.y));
-  sc = __fadd_rn(sc, __fmul_rn(qv.z, m.z));
-  return __fadd_rn(sc, qv.w) <= r2;
-}
-
 // The box (lo, hi) and largest |q|^2 (n2) of an octet's 8 queries, whose
 // lanes (i, k) differ in i: a butterfly over lane bits 2-4, so every lane
 // gets the result.
@@ -340,17 +294,7 @@ moments_visits_kernel(const float4* __restrict__ q, const float4* __restrict__ t
     for (int mm = 0; mm < (MBT + NT - 1) / NT; ++mm) {
       const int e = tid + mm * NT;
       if (NT > MBT && e >= MBT) break;
-      const float4 tv = cur[e];
-      feat[0 * FS + e] = tv.x;
-      feat[1 * FS + e] = tv.y;
-      feat[2 * FS + e] = tv.z;
-      feat[3 * FS + e] = __fmul_rn(tv.x, tv.x);
-      feat[4 * FS + e] = __fmul_rn(tv.y, tv.y);
-      feat[5 * FS + e] = __fmul_rn(tv.z, tv.z);
-      feat[6 * FS + e] = __fmul_rn(tv.x, tv.y);
-      feat[7 * FS + e] = __fmul_rn(tv.x, tv.z);
-      feat[8 * FS + e] = __fmul_rn(tv.y, tv.z);
-      cur[e] = make_float4(-2.0f * tv.x, -2.0f * tv.y, -2.0f * tv.z, tv.w);
+      const float4 tv = stage_features(cur, feat, e);
       // (a group of padding rows only gets lo = +inf, hi = -inf: apart from
       // every query)
       const bool real = tv.w != PAD_T2;
@@ -429,19 +373,11 @@ int launch_visits_t(const void* q, const void* t, const void* cnt, const void* i
   if (bt != MBT || batch < 1 || batch > 65535 || num_tiles < 1 || num_chunks < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // more than 48 KB of dynamic shared memory needs an opt-in, once per device
   static unsigned configured = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = allow_stage_smem(moments_visits_kernel<OCT, P>, configured);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= 32 || !(configured & (1u << dev))) {
-    err = cudaFuncSetAttribute(moments_visits_kernel<OCT, P>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(VISITS_SMEM));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < 32) configured |= 1u << dev;
-  }
   const dim3 grid(num_tiles * (BQ / (8 * OCT * P)), batch);
-  moments_visits_kernel<OCT, P><<<grid, 128 * P, VISITS_SMEM, static_cast<cudaStream_t>(stream)>>>(
+  moments_visits_kernel<OCT, P><<<grid, 128 * P, STAGE_SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(q), static_cast<const float4*>(t), static_cast<const int*>(cnt),
       static_cast<const int*>(ids), static_cast<const float*>(r2), num_tiles, num_chunks,
       static_cast<float*>(out));
@@ -453,15 +389,214 @@ int launch_visits_t(const void* q, const void* t, const void* cnt, const void* i
 constexpr int QUERY_SPLITS = 2, WARPS = 4;
 constexpr auto launch_visits = launch_visits_t<BQ / QUERY_SPLITS / 8 / WARPS, WARPS>;
 
-int launch_dense(const void* q, const void* t, const void* r2, int batch, int num_tiles,
-                 int num_chunks, int bt, void* out, void* stream) {
-  if (bt != DENSE_BT) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(num_tiles, batch), block(THREADS);
-  moments_dense_kernel<DENSE_BT><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(q), static_cast<const float4*>(t),
-      static_cast<const float*>(r2), num_tiles, num_chunks, static_cast<float*>(out));
+// ---------------------------------------------------------------------------
+// Dense kernel (B5, B6): the independent check of B1/B4's pruning, so it
+// evaluates every (query, target) gate: no visit list, no box test.
+//
+// Grid (tiles, members, S = DENSE_SPLITS), fixed by the shapes: block j of
+// a tile takes quads j, j + S, j + 2S, ... of the member's targets (a quad:
+// 4 consecutive targets), 128 quads (MBT targets) a slice, and warp column
+// w of the block every fourth quad of each slice, from the w-th. The pairs
+// inside the radius cluster (all ~1000 sentinel rows of a padded scan pass
+// the gate against each other), and summing them is the costly part of a
+// pair; interleaved so, they spread evenly over the blocks of a tile and
+// the warps of a block instead of piling onto a few warps, whose serial
+// chain of tensor-core sums would be the launch's critical path. S
+// divides the 256 quads of a 1024-point chunk, so every block has the same
+// number of quads and none is idle, whatever the target count.
+// A block holds the tile's 64 queries: 4 x 8 / OCT warps, warp (w, h)
+// gating octets h OCT .. h OCT + OCT - 1 against its column's quads, each
+// target against its OCT octets. B5/B6 launch (S, OCT) = (8, 4): 512
+// blocks of 256 threads at B5's 64 tiles, all resident at once (4 an SM:
+// launch bounds hold the kernel to 64 registers). Other instances (S,
+// OCT) are compiled only into the sweep build.
+//
+// Sums: a quad in which no pair passes costs one vote and nothing else.
+// Otherwise, for each octet with a pair inside: features 0-7 on the FP64
+// tensor cores (W F as in B1, one mma.sync m8n8k4), and yz and the count
+// by a float64 and an int add in each lane whose gate passes (on the H100
+// faster at B5's and B6's shapes than float64 adds of all ten sums).
+//
+// Order of the sums, fixed by the shapes: per query, a partial for each
+// column over its quads in order (the four lanes of a query merged by a
+// fixed butterfly where each holds part of it); the block's partial
+// ((Q0 + Q1) + (Q2 + Q3)); then the partials of splits 0, 1, ... added in
+// that order, and one f32 rounding. A member of B6 so gets the bits of B5
+// on its inputs.
+//
+// Merge in the same launch: each block writes its 64 x 10 float64 partial
+// to scratch and, after a block barrier, counts itself on an int counter of
+// its (member, tile) with one acq_rel atomic. The block that counts last
+// reads the partials through the L2 (__ldcg), all splits' at once, adds
+// them in split order, writes the outputs and resets the counter to 0, so
+// every launch leaves the counters at 0 (as in nn.cu; a CUDA graph may
+// replay a call). Integer atomics only. Launches that may run at once (on
+// two streams) must not share a counter buffer.
+//
+// Scratch, per call: partial (B, G, S, 64, 10) float64.
+// Counters: (B * G,) uint32, all 0, zeroed once per buffer.
+// ---------------------------------------------------------------------------
+constexpr int DENSE_BT = 1024;  // dense chunk (the JAX package's BT)
+
+// Block (g, b, j): split j of tile g of member b; S splits a tile, OCT
+// octets a warp.
+template <int S, int OCT>
+__global__ void __launch_bounds__(1024 / OCT, OCT)
+moments_dense_split_kernel(const float4* __restrict__ q, const float4* __restrict__ t,
+                           const float* __restrict__ r2p, int num_tiles, int num_chunks,
+                           double* __restrict__ partial, unsigned* __restrict__ counters,
+                           float* __restrict__ out) {
+  // S divides a chunk's 256 quads: every block has whole 64-target parts of a slice
+  static_assert((DENSE_BT / 4) % S == 0, "target splits divide a chunk's quads");
+  constexpr int NT = 1024 / OCT;  // 4 columns x 8 / OCT warps
+  extern __shared__ float4 smem[];
+  float4* raw = smem;                                        // [2][MBT]
+  double* feat = reinterpret_cast<double*>(smem + 2 * MBT);  // [NF][FS]
+  double* part = feat;  // [4][BQ][NM] column partials, over the consumed features
+  __shared__ bool last;
+  const int g = blockIdx.x, j = blockIdx.z;
+  const size_t b = blockIdx.y;
+  const size_t n_pad = (size_t)num_tiles * BQ;
+  const size_t unit = b * num_tiles + g;  // (member, tile): one counter each
+  q += b * n_pad;
+  t += b * (size_t)num_chunks * DENSE_BT + 4 * j;  // quad j: the block's first
+  out += b * n_pad * NM;
+  partial += unit * S * (BQ * NM);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, w = tid >> 5 & 3;  // column w
+  const int i = lane >> 2, k = lane & 3;
+  const int row0 = g * BQ;
+  const int ob = (tid >> 7) * OCT;                 // the warp's first octet
+  const int nt = num_chunks * (DENSE_BT / S);      // the block's targets (4 a quad)
+  const int ns = (nt + MBT - 1) / MBT;             // slices
+  constexpr int stride = 4 * S;                    // from one of the block's quads to the next
+  stage<NT, stride>(raw, t, tid, min(nt, MBT));
+  float4 qv[OCT];
+#pragma unroll
+  for (int o = 0; o < OCT; ++o) qv[o] = q[row0 + 8 * (ob + o) + i];
+  const float r2 = r2p[b];
+
+  // query i of each octet: sums 2k, 2k + 1 (c0), and yz and the count over
+  // this lane's targets
+  double c0[OCT][2], yz[OCT];
+  int cnt[OCT];
+#pragma unroll
+  for (int o = 0; o < OCT; ++o) {
+    c0[o][0] = c0[o][1] = yz[o] = 0.0;
+    cnt[o] = 0;
+  }
+
+  for (int v = 0; v < ns; ++v) {
+    float4* cur = raw + (v & 1) * MBT;
+    const int n = min(nt - v * MBT, MBT);  // targets of slice v: a multiple of 64
+    wait_staged<0>();
+    __syncthreads();  // slice v is staged; slice v - 1 is consumed
+    if (v + 1 < ns) {
+      stage<NT, stride>(raw + ((v + 1) & 1) * MBT, t + (size_t)(v + 1) * (MBT / 4) * stride, tid,
+                        min(nt - (v + 1) * MBT, MBT));
+    }
+#pragma unroll
+    for (int e = tid; e < MBT; e += NT) {
+      if (e < n) stage_features(cur, feat, e);
+    }
+    __syncthreads();  // the slice's features and gate operands are staged
+    // lane (i, k) of column w: target k of quads w, w + 4, ... of the slice,
+    // n / 16 of them (a multiple of 4: four a step, no remainder)
+    const float4* tq = cur + 4 * w + k;
+    const double* fq = feat + 4 * w + k;
+    for (int u0 = 0; u0 < n / 16; u0 += 4) {
+#pragma unroll
+      for (int u = u0; u < u0 + 4; ++u) {
+        const float4 tv = tq[16 * u];
+        bool in[OCT];
+        bool any = false;
+#pragma unroll
+        for (int o = 0; o < OCT; ++o) {
+          in[o] = inside(qv[o], tv, r2);
+          any |= in[o];
+        }
+        // most quads hold no pair inside: one vote, and nothing to add
+        if (!__any_sync(0xffffffffu, any)) continue;
+        const double b0 = fq[i * FS + 16 * u], f8 = fq[8 * FS + 16 * u];
+#pragma unroll
+        for (int o = 0; o < OCT; ++o) {
+          if (__any_sync(0xffffffffu, in[o])) {
+            mma_f64(c0[o], in[o] ? 1.0 : 0.0, b0);
+            if (in[o]) {
+              yz[o] += f8;
+              ++cnt[o];
+            }
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();  // every warp is done with the features
+#pragma unroll
+  for (int o = 0; o < OCT; ++o) {
+    double* p = part + (w * BQ + 8 * (ob + o) + i) * NM;
+    // the four lanes of query i: a fixed butterfly
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      yz[o] += __shfl_xor_sync(0xffffffffu, yz[o], off);
+      cnt[o] += __shfl_xor_sync(0xffffffffu, cnt[o], off);
+    }
+    p[2 * k] = c0[o][0];
+    p[2 * k + 1] = c0[o][1];
+    if (k == 0) {
+      p[8] = yz[o];
+      p[9] = cnt[o];
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < BQ * NM; e += NT) {
+    partial[j * (BQ * NM) + e] = (part[e] + part[BQ * NM + e]) + (part[2 * BQ * NM + e] + part[3 * BQ * NM + e]);
+  }
+  __syncthreads();  // the block's partial is written
+  if (tid == 0) {
+    unsigned prev;
+    // acq_rel at device scope: releases this block's partial (ordered
+    // before it by the barrier) and acquires those of the blocks that
+    // counted earlier
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n" : "=r"(prev) : "l"(counters + unit) : "memory");
+    last = prev == static_cast<unsigned>(S - 1);
+    if (last) counters[unit] = 0;  // every block has counted: ready for the next launch
+  }
+  __syncthreads();
+  if (!last) return;
+  for (int e = tid; e < BQ * NM; e += NT) {
+    double p[S];  // every split's partial in flight at once
+#pragma unroll
+    for (int jj = 0; jj < S; ++jj) p[jj] = __ldcg(partial + jj * (BQ * NM) + e);  // through the L2, never a stale L1 line
+    double s = p[0];
+#pragma unroll
+    for (int jj = 1; jj < S; ++jj) s += p[jj];
+    out[(size_t)row0 * NM + e] = static_cast<float>(s);
+  }
+}
+
+template <int S, int OCT>
+int launch_dense_t(const void* q, const void* t, const void* r2, int batch, int num_tiles,
+                   int num_chunks, int bt, void* partial, void* counters, void* out, void* stream) {
+  if (bt != DENSE_BT || batch < 1 || batch > 65535 || num_tiles < 1 || num_chunks < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static unsigned configured = 0;
+  const cudaError_t err = allow_stage_smem(moments_dense_split_kernel<S, OCT>, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(num_tiles, batch, S);
+  moments_dense_split_kernel<S, OCT><<<grid, 1024 / OCT, STAGE_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(q), static_cast<const float4*>(t), static_cast<const float*>(r2),
+      num_tiles, num_chunks, static_cast<double*>(partial), static_cast<unsigned*>(counters),
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
+
+// The instance B5/B6 launch: each tile's quads over 8 blocks, 4 octets of
+// queries a warp (256 threads), features 0-7 summed on the tensor cores
+constexpr int DENSE_SPLITS = 8, DENSE_OCTETS = 4;
+constexpr auto launch_dense = launch_dense_t<DENSE_SPLITS, DENSE_OCTETS>;
 
 }  // namespace
 
@@ -507,17 +642,40 @@ extern "C" int locus_moments_visits_sweep(const void* q, const void* t,
 }
 #endif
 
-// Kernel B5: one member, every chunk.
+#ifdef LOCUS_MOMENTS_SWEEP
+// Sweep build only: B6 (B5 at batch 1) at any instance, `splits` blocks a
+// tile and `octets` octets of queries a warp; the scratch holds `splits`
+// partials a tile. tools/torch_moments_ab.py holds each instance to the
+// plain version.
+extern "C" int locus_moments_dense_sweep(const void* q, const void* t, const void* r2,
+                                         int batch, int num_tiles, int num_chunks, int bt,
+                                         int splits, int octets, void* partial, void* counters,
+                                         void* out, void* stream) {
+#define LOCUS_DENSE(S, OCT)                                                                       \
+  if (splits == S && octets == OCT) {                                                            \
+    return launch_dense_t<S, OCT>(q, t, r2, batch, num_tiles, num_chunks, bt, partial, counters, \
+                                  out, stream);                                                  \
+  }
+  LOCUS_DENSE(4, 4) LOCUS_DENSE(8, 2) LOCUS_DENSE(8, 4) LOCUS_DENSE(16, 4)
+#undef LOCUS_DENSE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+#endif
+
+// Kernel B5: one member, every target. `partial` is scratch of
+// DENSE_SPLITS x 64 x 10 float64 a tile; `counters` (one a tile) are 0.
 extern "C" int locus_moments_dense(const void* q, const void* t, const void* r2,
                                    int num_tiles, int num_chunks, int bt,
-                                   void* out, void* stream) {
-  return launch_dense(q, t, r2, 1, num_tiles, num_chunks, bt, out, stream);
+                                   void* partial, void* counters, void* out, void* stream) {
+  return launch_dense(q, t, r2, 1, num_tiles, num_chunks, bt, partial, counters, out, stream);
 }
 
-// Kernel B6: `batch` members, every chunk, one radius per member.
+// Kernel B6: `batch` members, every target, one radius per member; scratch
+// and counters as B5's for each member's tiles.
 extern "C" int locus_moments_dense_batched(const void* q, const void* t,
                                            const void* r2, int batch,
                                            int num_tiles, int num_chunks,
-                                           int bt, void* out, void* stream) {
-  return launch_dense(q, t, r2, batch, num_tiles, num_chunks, bt, out, stream);
+                                           int bt, void* partial, void* counters,
+                                           void* out, void* stream) {
+  return launch_dense(q, t, r2, batch, num_tiles, num_chunks, bt, partial, counters, out, stream);
 }

@@ -25,6 +25,15 @@ by the shapes: no visit count read, so no host synchronisation; no merge).
 Whatever the split or the batch, a query's sums combine in one order: per
 QUARTER of each visited chunk in list order, then the four quarters as
 ((P0 + P1) + (P2 + P3)), so a B4 member equals B1 bit for bit.
+
+B5/B6 split each tile's targets, by quads of 4, over DENSE_SPLIT[0]
+blocks (quads j, j + S, ... to block j: a grid also fixed by the shapes),
+whose float64 partials the last block of the tile adds in split order in
+the same launch (`_merge_counters`: int counters per device and stream,
+so launches that may run at once never share them; zeroed once here and
+left at 0 by every launch; the partials go to scratch allocated per
+call). The kernel needs no visit lists; the plain version gets every
+chunk on every list (`dense_visits`).
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ from locus_tpu_torch.ops import dispatch
 from locus_tpu_torch.ops.kernels.nn import (
     BQ,
     _check_operand,
+    _device_buffers,
     _row_blocks,
     check_tiling,
     chunk_boxes,
@@ -51,13 +61,16 @@ DENSE_BT = 1024  # target chunk of the dense pass (the JAX kernel's BT)
 NM = 10          # moment columns
 PAD_T2 = 1e12    # |t|^2 of padding targets: fails every gate
 QUARTER = MBT // 4  # targets of one fixed partial of B1/B4 (one warp's share of a chunk)
-DENSE_THREADS = 256  # threads of a B5/B6 block (csrc/moments.cu)
 # The instance B1/B4 launch (QUERY_SPLITS, WARPS of csrc/moments.cu): each
 # tile to two blocks of 32 queries, 4 warps a quarter of a chunk (512
 # threads, one octet of queries a warp). The fastest instance at both B1's
 # 64 tiles and B4's 4 x 64 on the H100 (tools/torch_moments_ab.py sweeps
 # the others; PERF.md).
 SPLIT = (2, 4)
+# The instance B5/B6 launch (DENSE_SPLITS, DENSE_OCTETS of csrc/moments.cu):
+# each tile's quads of 4 targets over 8 blocks (quads j, j + 8, ... to
+# block j), 4 octets of queries a warp (256 threads a block).
+DENSE_SPLIT = (8, 4)
 
 # Launches of each CUDA kernel since the last reset (plain runs not counted).
 launches = 0                # B1
@@ -98,24 +111,39 @@ def moments_visits_plain(cnt, ids, r2, q, t, bt: int = MBT):
 def launch_grid(kind: str, batch: int, num_tiles: int):
     """((x, y, z) grid, threads a block) of a moments launch: `kind`
     "visits" (B1/B4: tile parts, members) or "dense" (B5/B6: tiles,
-    members)."""
+    members, target splits)."""
     if kind == "dense":
-        return (num_tiles, batch, 1), DENSE_THREADS
+        splits, octets = DENSE_SPLIT
+        return (num_tiles, batch, splits), 1024 // octets
     qs, warps = SPLIT
     return (num_tiles * qs, batch, 1), 128 * warps
 
 
+def _merge_counters(dev: torch.device, num_counters: int) -> torch.Tensor:
+    """The int counters of B5/B6's in-launch merge on `dev`'s current
+    stream (one a member's tile), at least `num_counters`: zeroed once,
+    left at 0 by every launch. Each stream has its own, so launches that
+    may overlap (on two streams) never count on the same counter."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return _device_buffers(dev, num_counters, f"dense moments on stream {stream:#x}")[1]
+
+
+def dense_scratch(batch: int, num_tiles: int, splits: int, device) -> torch.Tensor:
+    """Scratch of a B5/B6 launch: a float64 (BQ, NM) partial for each split
+    of each member's tile."""
+    return torch.empty(batch * num_tiles * splits * BQ * NM, dtype=torch.float64, device=device)
+
+
 def _moments_cuda(kind, cnt, ids, r2, q, t, bt: int, batched: bool):
-    """Launch B1/B4 (`kind` "visits") or B5/B6 ("dense") on the card."""
+    """Launch B1/B4 (`kind` "visits") or B5/B6 ("dense": `cnt` and `ids`
+    None, the kernel visits every target) on the card."""
     from locus_tpu_torch.ops.kernels import build
 
     dense = kind == "dense"
     dev = q.device
-    for x, name, dtype, cols in (
-        (q, "q", torch.float32, 4), (t, "t", torch.float32, 4),
-        (cnt, "cnt", torch.int32, None), (ids, "ids", torch.int32, None),
-        (r2, "r2", torch.float32, None),
-    ):
+    lists = ((cnt, "cnt", torch.int32, None), (ids, "ids", torch.int32, None)) if cnt is not None else ()
+    for x, name, dtype, cols in ((q, "q", torch.float32, 4), (t, "t", torch.float32, 4), *lists,
+                                 (r2, "r2", torch.float32, None)):
         _check_operand(x, name, dtype, cols, dev)
     batch = q.shape[0] if batched else 1
     entry = f"locus_moments_{kind}" + ("_batched" if batched else "")
@@ -125,12 +153,17 @@ def _moments_cuda(kind, cnt, ids, r2, q, t, bt: int, batched: bool):
     fn = getattr(build.library("moments"), entry)
     pointers = (q, t) if dense else (q, t, cnt, ids)
     sizes = ((batch,) if batched else ()) + (num_tiles, num_chunks, bt)
-    fn.argtypes = [ctypes.c_void_p] * (len(pointers) + 1) + [ctypes.c_int] * len(sizes) + [ctypes.c_void_p] * 2
+    # B5/B6: the split partials' scratch and the merge counters
+    merge = ()
+    if dense:
+        merge = (dense_scratch(batch, num_tiles, DENSE_SPLIT[0], dev), _merge_counters(dev, batch * num_tiles))
+    fn.argtypes = ([ctypes.c_void_p] * (len(pointers) + 1) + [ctypes.c_int] * len(sizes)
+                   + [ctypes.c_void_p] * (len(merge) + 2))
     fn.restype = ctypes.c_int
     out = torch.empty(q.shape[:-1] + (NM,), dtype=torch.float32, device=dev)
     status = fn(
-        *(p.data_ptr() for p in pointers), r2.data_ptr(), *sizes, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        *(p.data_ptr() for p in pointers), r2.data_ptr(), *sizes, *(m.data_ptr() for m in merge),
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(status, entry)
     counter = ("dense_" if dense else "") + ("batched_" if batched else "") + "launches"
@@ -168,19 +201,17 @@ def dense_visits(q: torch.Tensor, t: torch.Tensor):
 def moments_dense(r2, q, t):
     """Dense raw radius moments (n_pad, 10) of one member over every
     target (kernel B5; the dense check of B1); r2 (1,)."""
-    cnt, ids = dense_visits(q, t)
     if q.is_cuda and dispatch.kernels_enabled():
-        return _moments_cuda("dense", cnt, ids, r2, q, t, DENSE_BT, batched=False)
-    return moments_visits_plain(cnt, ids, r2, q, t, DENSE_BT)
+        return _moments_cuda("dense", None, None, r2, q, t, DENSE_BT, batched=False)
+    return moments_visits_plain(*dense_visits(q, t), r2, q, t, DENSE_BT)
 
 
 def moments_dense_batched(r2, q, t):
     """Kernel B5 for B members in one launch (kernel B6): r2 (B,), q (B,
     n_pad, 4), t (B, m_pad, 4) -> (B, n_pad, 10)."""
-    cnt, ids = dense_visits(q, t)
     if q.is_cuda and dispatch.kernels_enabled():
-        return _moments_cuda("dense", cnt, ids, r2, q, t, DENSE_BT, batched=True)
-    return moments_visits_plain(cnt, ids, r2, q, t, DENSE_BT)
+        return _moments_cuda("dense", None, None, r2, q, t, DENSE_BT, batched=True)
+    return moments_visits_plain(*dense_visits(q, t), r2, q, t, DENSE_BT)
 
 
 def pack_operands(query: torch.Tensor, target: torch.Tensor, bt: int = MBT):

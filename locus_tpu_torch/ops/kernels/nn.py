@@ -218,19 +218,21 @@ def _check_operand(x: torch.Tensor, name: str, dtype, cols: int | None, device):
 
 
 def check_tiling(what, q, t, cnt, ids, batch, bt: int, batched: bool):
-    """Shapes of a (batched) visit-list launch: (num_tiles, num_chunks).
-    Raises on anything the kernels do not take."""
+    """Shapes of a (batched) visit-list launch: (num_tiles, num_chunks);
+    `cnt` and `ids` None for a launch without visit lists (the dense
+    moments). Raises on anything the kernels do not take."""
     rank = 3 if batched else 2
     n_pad, m_pad = q.shape[-2], t.shape[-2]
     num_tiles, num_chunks = n_pad // BQ, m_pad // bt
     lead = (batch,) if batched else ()
+    lists = cnt is not None
     if (q.dim() != rank or t.dim() != rank or q.shape[:-2] != lead or t.shape[:-2] != lead
-            or n_pad % BQ or m_pad % bt or cnt.shape != lead + (num_tiles,)
-            or ids.shape != lead + (num_tiles * num_chunks,)):
+            or n_pad % BQ or m_pad % bt or lists and (cnt.shape != lead + (num_tiles,)
+                                                      or ids.shape != lead + (num_tiles * num_chunks,))):
         raise ValueError(
-            f"{what}: q {tuple(q.shape)}, t {tuple(t.shape)}, cnt {tuple(cnt.shape)}, "
-            f"ids {tuple(ids.shape)} do not tile by BQ={BQ}, bt={bt}"
-            + (f" over a batch of {batch}" if batched else "")
+            f"{what}: q {tuple(q.shape)}, t {tuple(t.shape)}"
+            + (f", cnt {tuple(cnt.shape)}, ids {tuple(ids.shape)}" if lists else "")
+            + f" do not tile by BQ={BQ}, bt={bt}" + (f" over a batch of {batch}" if batched else "")
         )
     return num_tiles, num_chunks
 
@@ -257,30 +259,33 @@ def launch_grid(batch: int, num_tiles: int, num_chunks: int, bt: int, sms: int):
     return (num_tiles * qs, batch, ts)
 
 
-# per CUDA device: (SM count, counter buffer of the in-launch merge)
-_device_state: dict[torch.device, tuple[int, torch.Tensor]] = {}
+# per (CUDA device, buffer family): (SM count, counter buffer of an
+# in-launch merge)
+_device_state: dict[tuple[torch.device, str], tuple[int, torch.Tensor]] = {}
 # counter buffers replaced by larger ones, kept alive for CUDA graphs that
 # captured a launch on them
 _retired: list[torch.Tensor] = []
 
 
-def _device_buffers(dev: torch.device, num_counters: int):
-    """The SM count of `dev` and its counter buffer, at least
-    `num_counters` long. The buffer is zeroed once, when it is made or
-    grown; every launch leaves it at 0."""
-    sms, counters = _device_state.get(dev, (None, None))
+def _device_buffers(dev: torch.device, num_counters: int, family: str = "nn"):
+    """The SM count of `dev` and the counter buffer `family` on it ("nn":
+    B2/B3's; B5/B6 keep one per stream), at least `num_counters` long. The
+    buffer is zeroed once, when it is made or grown; every launch leaves it
+    at 0."""
+    sms, counters = _device_state.get((dev, family), (None, None))
     if counters is None or counters.numel() < num_counters:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
-                "nn_visits: the merge counters of this device are not allocated yet; "
-                "call the kernel once outside CUDA graph capture first"
+                f"{family}: the merge counters of this device are not allocated yet; "
+                "call the kernel once outside CUDA graph capture first (on the capture stream, "
+                "for counters kept per stream)"
             )
         if counters is None:
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
         else:
             _retired.append(counters)
         counters = torch.zeros(max(num_counters, 1 << 14), dtype=torch.int32, device=dev)
-        _device_state[dev] = (sms, counters)
+        _device_state[(dev, family)] = (sms, counters)
     return sms, counters
 
 

@@ -152,6 +152,53 @@ def test_dense_moments_match_pallas(clouds):
     _assert_same((count, mean[..., 0], cov[..., 1, 2]), (tb[0], tb[1][0], tb[2][4]))
 
 
+# (queries, targets, radius of each member): shapes at the edges of B5/B6's
+# tiling. The first member also runs alone (B5); all run batched (B6).
+DENSE_EDGES = {
+    "targets_not_a_multiple_of_1024": (128, 1500, (0.8, 0.6)),
+    "queries_not_a_multiple_of_64": (100, 2048, (0.8, 0.6)),
+    "one_chunk": (64, 1024, (0.8, 1.1)),
+    "five_chunks": (192, 5000, (0.8, 0.5)),
+    "radius_holds_every_pair": (128, 1100, (100.0, 100.0)),
+    "radius_zero": (128, 1100, (0.0, 0.0)),
+    "three_members_three_radii": (100, 1500, (0.5, 0.8, 1.1)),
+}
+
+
+@pytest.mark.parametrize("case", list(DENSE_EDGES))
+def test_dense_moments_match_pallas_at_edge_shapes(case):
+    """B5's plain version against `radius_moments_pallas_comps` (interpret
+    mode) on the first member, and B6's against its vmap on all, at the
+    edges of the tiling: padding targets (|t|^2 = PAD_T2), padding query
+    rows, one and five 1024-point chunks, a radius that holds every pair,
+    radius 0, three members with three radii. The queries are jittered
+    copies of targets, a quarter of them exact. Tolerance as in
+    `_assert_moments_close`: counts exact off the radius boundary (at
+    radius 0 those counts are all 0), sums rtol 1e-5 with a floor of 1e-6
+    of the column's largest term."""
+    n, m, radii = DENSE_EDGES[case]
+    rng = np.random.default_rng(7)
+    ts = (rng.normal(size=(len(radii), m, 3)) * 2).astype(np.float32)
+    qs = ts[:, rng.choice(m, n, replace=False)].copy()
+    qs[:, n // 4:] += rng.normal(scale=0.1, size=qs[:, n // 4:].shape).astype(np.float32)
+    radii = np.asarray(radii, np.float32)
+    boundary = _boundary(qs, ts, radii)
+    j1 = jmom.radius_moments_pallas_comps(jnp.asarray(qs[0]), jnp.asarray(ts[0]), radii[0], interpret=True)
+    t1 = tmom.radius_moments_comps(to_torch(qs[0]), to_torch(ts[0]), to_torch(radii[0]))
+    jb = jax.vmap(lambda q, t, r: jmom.radius_moments_pallas_comps(q, t, r, interpret=True))(
+        jnp.asarray(qs), jnp.asarray(ts), jnp.asarray(radii)
+    )
+    tb = tmom.radius_moments_comps(to_torch(qs), to_torch(ts), to_torch(radii))
+    assert tb[0].shape == (len(radii), n)
+    for t_comps, j_comps, bnd in ((t1, j1, boundary[0]), (tb, jb, boundary)):
+        if radii[0] > 0:
+            _assert_moments_close(t_comps, j_comps, bnd)
+        else:
+            assert bnd.any() and not np_(t_comps[0])[~bnd].any() and not np.asarray(j_comps[0])[~bnd].any()
+    if case == "radius_holds_every_pair":
+        np.testing.assert_array_equal(np_(tb[0]), m)
+
+
 def test_dense_equals_pruned_off_the_boundary(clouds):
     """B5/B6 are the dense check of B1/B4: equal sums (float64, order
     free) wherever the counts agree, which is everywhere off the radius."""

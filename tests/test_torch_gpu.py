@@ -411,6 +411,135 @@ def test_moments_kernel_back_to_back_and_graph_replay(cuda_device):
     np.testing.assert_array_equal(np_(eager), np_(tmom.moments_visits_plain(*x)))
 
 
+# (queries, targets, radius of each member): shapes at the edges of B5/B6's
+# tiling, as in test_torch_batched.py, and fewer targets than splits
+DENSE_EDGES = {
+    "fewer_targets_than_splits": (130, 700, (0.8, 1.1)),  # one chunk: one 128-target run a split
+    "targets_not_a_multiple_of_1024": (128, 1500, (0.8, 0.6)),
+    "queries_not_a_multiple_of_64": (100, 2048, (0.8, 0.6)),
+    "one_chunk": (64, 1024, (0.8, 1.1)),
+    "five_chunks": (192, 5000, (0.8, 0.5)),
+    "radius_holds_every_pair": (128, 1100, (100.0, 100.0)),
+    "radius_zero": (128, 1100, (0.0, 0.0)),
+    "three_members_three_radii": (100, 1500, (0.5, 0.8, 1.1)),
+}
+
+
+def _dense_inputs(device, case, seed=7):
+    """B6's packed operands (r2 (B,), q (B, n_pad, 4), t (B, m_pad, 4)) at
+    one of DENSE_EDGES: targets N(0, 2^2) per axis, the queries jittered
+    copies of targets, a quarter of them exact."""
+    n, m, radii = DENSE_EDGES[case]
+    rng = np.random.default_rng(seed)
+    ts = (rng.normal(size=(len(radii), m, 3)) * 2).astype(np.float32)
+    qs = ts[:, rng.choice(m, n, replace=False)].copy()
+    qs[:, n // 4:] += rng.normal(scale=0.1, size=qs[:, n // 4:].shape).astype(np.float32)
+    q, t = tmom.pack_operands(torch.from_numpy(qs).to(device), torch.from_numpy(ts).to(device), bt=tmom.DENSE_BT)
+    r2 = torch.tensor(radii, dtype=torch.float32, device=device) ** 2
+    return r2, q, t
+
+
+def _dense_plain(r2, q, t):
+    return tmom.moments_visits_plain(*tmom.dense_visits(q, t), r2, q, t, tmom.DENSE_BT)
+
+
+@pytest.mark.parametrize("case", list(DENSE_EDGES))
+def test_dense_moments_kernels_match_plain_at_edge_shapes(cuda_device, case):
+    """Kernels B5 (first member) and B6 (every member) at the edges of the
+    tiling, fewer targets than splits included: the plain version's sums
+    and counts on every row, and every B6 member the bits of B5 on its
+    inputs."""
+    r2, q, t = _dense_inputs(cuda_device, case)
+    before = (tmom.dense_launches, tmom.dense_batched_launches)
+    k6 = tmom.moments_dense_batched(r2, q, t)
+    k5 = [tmom.moments_dense(r2[b:b + 1], q[b].contiguous(), t[b].contiguous()) for b in range(q.shape[0])]
+    torch.cuda.synchronize()
+    assert (tmom.dense_launches, tmom.dense_batched_launches) == (before[0] + q.shape[0], before[1] + 1)
+    np.testing.assert_array_equal(np_(k6), np_(_dense_plain(r2, q, t)))
+    np.testing.assert_array_equal(np_(k5[0]), np_(_dense_plain(r2[:1], q[0], t[0])))
+    for b, kb in enumerate(k5):
+        np.testing.assert_array_equal(np_(kb), np_(k6[b]), err_msg=f"member {b}")
+    if case == "radius_holds_every_pair":
+        valid = np_(q[..., 3] > 0)
+        assert (np_(k6[..., 9])[valid] == t.shape[-2] - int((t[0, :, 3] == tmom.PAD_T2).sum())).all()
+
+
+def test_dense_moments_kernel_batch_of_one_equals_single(cuda_device):
+    """B6 at B = 1 gives the bits of B5."""
+    r2, q, t = _dense_inputs(cuda_device, "five_chunks")
+    k6 = tmom.moments_dense_batched(r2[:1], q[:1].contiguous(), t[:1].contiguous())
+    k5 = tmom.moments_dense(r2[:1], q[0].contiguous(), t[0].contiguous())
+    torch.cuda.synchronize()
+    assert k6.shape == (1,) + k5.shape
+    np.testing.assert_array_equal(np_(k6[0]), np_(k5))
+    np.testing.assert_array_equal(np_(k5), np_(_dense_plain(r2[:1], q[0], t[0])))
+
+
+def test_dense_moments_kernel_back_to_back_leaves_the_counters_at_zero(cuda_device):
+    """B6 on two inputs queued without a synchronisation between them, then
+    the first again, then B5: each equals its plain version bit for bit,
+    the repeat equals the first call, and the merge counters are all 0
+    afterwards."""
+    a = _dense_inputs(cuda_device, "five_chunks", seed=1)
+    b = _dense_inputs(cuda_device, "three_members_three_radii", seed=2)
+    outs = [tmom.moments_dense_batched(*x) for x in (a, b, a)]
+    single = tmom.moments_dense(a[0][:1], a[1][0].contiguous(), a[2][0].contiguous())
+    torch.cuda.synchronize()
+    for k, x in zip(outs, (a, b, a)):
+        np.testing.assert_array_equal(np_(k), np_(_dense_plain(*x)))
+    np.testing.assert_array_equal(np_(outs[2]), np_(outs[0]))
+    np.testing.assert_array_equal(np_(single), np_(outs[0][0]))
+    assert not tmom._merge_counters(a[1].device, 1).any()
+
+
+def test_dense_moments_kernel_on_a_side_stream(cuda_device):
+    """B5 and B6 launched on a non-default stream (on inputs made on the
+    default one) give the plain version's bits."""
+    r2, q, t = _dense_inputs(cuda_device, "targets_not_a_multiple_of_1024", seed=3)
+    q0, t0 = q[0].contiguous(), t[0].contiguous()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k6 = tmom.moments_dense_batched(r2, q, t)
+        k5 = tmom.moments_dense(r2[:1], q0, t0)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(np_(k6), np_(_dense_plain(r2, q, t)))
+    np.testing.assert_array_equal(np_(k5), np_(_dense_plain(r2[:1], q0, t0)))
+    with torch.cuda.stream(side):
+        assert not tmom._merge_counters(q.device, 1).any()
+
+
+def test_dense_moments_kernel_on_two_streams_at_once(cuda_device):
+    """B6 queued on two streams at once, four calls each with no
+    synchronisation between them, so launches of the two streams may
+    overlap: each stream merges on counters of its own, every call gives
+    the plain version's bits, and both streams' counters end at 0."""
+    a = _dense_inputs(cuda_device, "five_chunks", seed=4)
+    b = _dense_inputs(cuda_device, "three_members_three_radii", seed=5)
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = {0: [], 1: []}
+    for _ in range(4):
+        for n, (s, x) in enumerate(zip(streams, (a, b))):
+            with torch.cuda.stream(s):
+                outs[n].append(tmom.moments_dense_batched(*x))
+    for s in streams:
+        torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    for n, x in enumerate((a, b)):
+        plain = np_(_dense_plain(*x))
+        for k in outs[n]:
+            np.testing.assert_array_equal(np_(k), plain, err_msg=f"stream {n}")
+    counters = []
+    for s in streams:
+        with torch.cuda.stream(s):
+            counters.append(tmom._merge_counters(a[1].device, 1))
+    assert counters[0].data_ptr() != counters[1].data_ptr()
+    assert not any(c.any() for c in counters)
+
+
 def _small_cfg():
     return cfg_mod.LocusConfig(
         scan_capacity=1024,

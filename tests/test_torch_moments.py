@@ -148,15 +148,16 @@ def test_eigen_solvers_match(rng):
     np.testing.assert_allclose(np.abs(np.sum(np_(tV) * np_(jV), -2)), 1.0, atol=1e-3)
 
 
-def _visit_case(rng, batch, every_chunk, num_tiles=6, num_chunks=4, r=0.6):
+def _visit_case(rng, batch, every_chunk, num_tiles=6, num_chunks=4, r=0.6, bt=tmom.MBT):
     """Packed operands and visit lists of kernel B1 (batch 0) or B4 at
-    MBT = 512: points straddling 0 on every axis, a thin (1e-4 m thick)
-    sheet and a line in the first two chunks (thin neighbourhoods), the
-    queries a jittered subset of the targets, padding rows at the end.
-    Tile 1 visits nothing; with `every_chunk` the others visit every chunk,
-    else a random subset in ascending order."""
+    chunk `bt` (MBT = 512; B5/B6 take DENSE_BT and every chunk): points
+    straddling 0 on every axis, a thin (1e-4 m thick) sheet and a line in
+    the first two chunks (thin neighbourhoods), the queries a jittered
+    subset of the targets, padding rows at the end. Tile 1 visits nothing;
+    with `every_chunk` the others visit every chunk, else a random subset
+    in ascending order."""
     nb = max(batch, 1)
-    m = num_chunks * tmom.MBT - 100
+    m = num_chunks * bt - 100
     pts = rng.uniform(-2.0, 2.0, size=(nb, m, 3)).astype(np.float32)
     pts[:, :300, 2] = rng.normal(scale=1e-4, size=(nb, 300))                   # sheet
     pts[:, 300:600] = np.linspace(-1, 1, 300)[:, None] * np.float32([1.0, 0.5, -0.25])  # line
@@ -164,7 +165,7 @@ def _visit_case(rng, batch, every_chunk, num_tiles=6, num_chunks=4, r=0.6):
     qry = qry + rng.normal(scale=0.05, size=qry.shape).astype(np.float32)
     lead = (batch,) if batch else ()
     to_t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).reshape(lead + x.shape[1:])
-    q, t = tmom.pack_operands(to_t(qry), to_t(pts))
+    q, t = tmom.pack_operands(to_t(qry), to_t(pts), bt=bt)
     visit = np.ones((nb, num_tiles, num_chunks), bool) if every_chunk else rng.uniform(size=(nb, num_tiles, num_chunks)) < 0.6
     visit[:, 1] = False
     cnt = visit.sum(-1).astype(np.int32)
@@ -221,6 +222,57 @@ def test_moments_visits_fixed_partials_are_bit_exact(rng, batch, every_chunk):
         np.testing.assert_array_equal(np_(plain[b]), np_(single))
 
 
+def _dense_fixed_order_sums(r2, q, t):
+    """B5/B6's order of summation, in float64: per member, tile and split
+    j of S = DENSE_SPLIT[0], whose quads (4 consecutive targets) are j,
+    j + S, j + 2S, ... of the targets (quad u of that list to column u mod
+    4), a partial per column over its quads in order, the block's
+    ((Q0 + Q1) + (Q2 + Q3)), then the splits' partials added in split
+    order, then one f32 rounding."""
+    lead = q.shape[:-2]
+    q, t = (x.reshape((-1,) + x.shape[len(lead):]) for x in (q, t))
+    r2 = r2.reshape(-1)
+    splits = tmom.DENSE_SPLIT[0]
+    num_quads = t.shape[-2] // 4
+    out = torch.empty(q.shape[:-1] + (tmom.NM,), dtype=torch.float32)
+    for b in range(q.shape[0]):
+        x, y, z = t[b, :, 0], t[b, :, 1], t[b, :, 2]
+        feat = torch.stack([x, y, z, x * x, y * y, z * z, x * y, x * z, y * z, torch.ones_like(x)], -1).double()
+        score = t[b, None, :, 3] + q[b, :, 0:1] * (-2.0 * t[b, None, :, 0]) + q[b, :, 1:2] * (-2.0 * t[b, None, :, 1]) \
+            + q[b, :, 2:3] * (-2.0 * t[b, None, :, 2])
+        W = ((score + q[b, :, 3:4]) <= r2[b]).double()
+        for g in range(q.shape[1] // tmom.BQ):
+            rows = slice(g * tmom.BQ, (g + 1) * tmom.BQ)
+            total = None
+            for j in range(splits):
+                part = torch.zeros((4, tmom.BQ, tmom.NM), dtype=torch.float64)
+                for u, quad in enumerate(range(j, num_quads, splits)):
+                    cols = slice(4 * quad, 4 * quad + 4)
+                    part[u % 4] += W[rows, cols] @ feat[cols]
+                block = (part[0] + part[1]) + (part[2] + part[3])
+                total = block if total is None else total + block
+            out[b, rows] = total.float()
+    return out.reshape(lead + out.shape[1:])
+
+
+@pytest.mark.parametrize("num_chunks", [1, 5], ids=["one_chunk", "five_chunks"])
+@pytest.mark.parametrize("batch", [0, 3], ids=["single", "batched"])
+def test_moments_dense_fixed_partials_are_bit_exact(rng, batch, num_chunks):
+    """The premise of the B5/B6 kernel's split: its fixed partials (per
+    column of each split's interleaved quads, then per split, merged in
+    split order) give the plain version's bits on every row, thin
+    neighbourhoods included, at one 1024-point chunk (32 quads a split: part
+    of a slice) and five (160: a full slice and part of another); a batch
+    member gets the bits of its single call."""
+    _, _, r2, q, t = _visit_case(rng, batch, True, num_tiles=3, num_chunks=num_chunks, bt=tmom.DENSE_BT)
+    run = tmom.moments_dense_batched if batch else tmom.moments_dense
+    plain = run(r2, q, t)
+    np.testing.assert_array_equal(np_(_dense_fixed_order_sums(r2, q, t)), np_(plain))
+    assert float(plain[..., 9].mean()) > 5  # the radius holds real neighbourhoods
+    for b in range(batch):
+        np.testing.assert_array_equal(np_(plain[b]), np_(tmom.moments_dense(r2[b:b + 1], q[b], t[b])))
+
+
 def _apart(lo, hi, q2, glo, ghi, g2, r2):
     """The B1/B4 kernel's skip test (`apart` in csrc/moments.cu), in f32."""
     f32 = np.float32
@@ -270,16 +322,24 @@ def test_moments_visits_group_pruning_keeps_every_neighbour(rng, scale, spread):
 
 
 def test_moments_splits_from_the_shapes():
-    """B1/B4 launch one instance, fixed in csrc/moments.cu: its grid depends
-    on the shapes only (no visit count read), and B4 at any batch gives
-    each member the blocks (and so the partial structure) of B1."""
+    """B1/B4 and B5/B6 each launch one instance, fixed in csrc/moments.cu:
+    their grids depend on the shapes only (no visit count read), and the
+    batched kernels at any batch give each member the blocks (and so the
+    partial structure) of the single ones. B5 at B1's 64 tiles launches at
+    least two blocks for each of the H100's 132 SMs."""
     src = (Path(tmom.__file__).resolve().parents[2] / "csrc" / "moments.cu").read_text()
     qs, warps = tmom.SPLIT
+    splits, octets = tmom.DENSE_SPLIT
     assert f"constexpr int QUERY_SPLITS = {qs}, WARPS = {warps};" in src
+    assert f"constexpr int DENSE_SPLITS = {splits}, DENSE_OCTETS = {octets};" in src
     for batch, tiles in ((1, 64), (4, 64), (16, 64), (1, 16), (4, 256)):
         assert tmom.launch_grid("visits", batch, tiles) == ((tiles * qs, batch, 1), 128 * warps)
-    assert tmom.launch_grid("dense", 4, 64) == ((64, 4, 1), tmom.DENSE_THREADS)
+        assert tmom.launch_grid("dense", batch, tiles) == ((tiles, batch, splits), 1024 // octets)
     assert (tmom.BQ // qs) % (8 * warps) == 0  # whole octets of queries a warp
+    assert 8 % octets == 0  # a tile's 8 octets split evenly over the warps of a column
+    assert tmom.DENSE_BT % tmom.MBT == 0  # whole slices a chunk
+    (gx, gy, gz), _ = tmom.launch_grid("dense", 1, 64)
+    assert gx * gy * gz >= 2 * 132
 
 
 def test_moments_visits_uses_plain_on_cpu(rng):

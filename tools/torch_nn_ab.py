@@ -32,9 +32,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def build_base(build, src: Path, flags: tuple[str, ...] = ()) -> ctypes.CDLL:
+def build_base(build, src: Path, flags: tuple[str, ...] = (), logs: dict | None = None) -> ctypes.CDLL:
     """nvcc of the base source into build/ab/, with the checkout's flags
-    and `flags`."""
+    and `flags`; the compiler's report goes to `logs[out file name]`."""
     out_dir = ROOT / "build" / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
@@ -44,6 +44,8 @@ def build_base(build, src: Path, flags: tuple[str, ...] = ()) -> ctypes.CDLL:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+        if logs is not None:
+            logs[out.name] = proc.stdout + proc.stderr
     return ctypes.CDLL(str(out))
 
 
