@@ -45,11 +45,31 @@ Phases, each printing one JSON line:
                its first 8 poses against its own plain-version reference
                run (phase 3); B2 must launch on every path, B1 on ndt and
                voxel_hash and not on features (kNN normals)
+ 9. live       one robot served by live.LiveSession around the 2-lap
+               circuit of tools/live_endurance.py (`serve_live`), IMU and
+               odometry fed ahead of each scan, the pose-graph backend of
+               tools/endurance.py closing loops and pushing them back
+               through apply_loop_closure, after the push-back and the
+               backend have been prewarmed: per-scan latency (process_scan
+               call to pose on the host), keyframes, closures, ATE, final
+               error, launches per scan and per closure attempt, kernel
+               builds and counter-buffer allocations after the prewarm
+               (must be 0); a second session resumed from the checkpoint
+               written at scan RESUME_AT must repeat the next 8 poses bit
+               for bit; the first 8 poses against a session on the plain
+               versions; B2 on the re-anchored map against its plain
+               version
+10. slam       runner.run_sequence(backend=) on the same circuit at 1800
+               azimuth steps (`run_slam`): scans/s, closures, ATE, final
+               error, launches per scan; a checkpoint after RESUME_AT scans
+               resumed for 8 scans bit for bit; the first 8 poses against
+               the plain versions
 Then the `kernels` summary line (launches summed over every path), the
 nvidia-smi line, and the final `{"ok": true, ...}` line. The full record also goes to
 chiprun_out/chip_smoke.json.
 """
 import json
+import math
 import subprocess
 import sys
 import time
@@ -84,6 +104,17 @@ PATHS = {
 }
 PATH_SCANS = 48
 VOXEL_HASH_MAP = "nn_visits_map_voxel_hash"   # the B2 map row on the voxel-hash operand
+# The live and slam phases: the circuit of tools/live_endurance.py and
+# tools/endurance.py (step 0.5 m, 2 laps, seed 0) cut from 2000 scans to
+# CIRCUIT_SCANS; the pose-graph backend at tools/endurance.py:385-392's
+# settings, closures tried every OPTIMIZE_EVERY keyframes
+CIRCUIT_SCANS, CIRCUIT_STEP, CIRCUIT_LAPS, CIRCUIT_SEED = 240, 0.5, 2, 0
+LIVE_AZIMUTH, SLAM_AZIMUTH = 900, 1800
+LOOP_BACKEND = {"loop_distance": 4.0, "min_index_gap": 20, "loop_fitness_max": 0.12}
+LOOP_REGISTRATION = {"corr_dist": 1.0, "iterations": 40}
+OPTIMIZE_EVERY = 5
+RESUME_AT, RESUME_SCANS = 40, 8   # checkpoint after scan RESUME_AT - 1, resumed for RESUME_SCANS scans
+LATENCY_BUDGET_MS = 100.0         # the pose must arrive before the next 10 Hz sweep
 
 
 def emit(record: dict) -> None:
@@ -144,6 +175,273 @@ def path_sequence(dataset, name, seq, num_scans=PATH_SCANS):
 
 
 PATH_SEQUENCE_NAMES = {"ndt": 'make_world_sequence("tunnel", azimuth_steps=900)'}
+
+
+def serving_config(cfg):
+    """`cfg` with the map sliding window's velocity gates raised, as
+    tools/endurance.py:171-188 raises them: the simulated robot moves at
+    5 m/s, far above the 0.1 m/s "refresh only when slow" heuristic."""
+    import dataclasses
+
+    return cfg.replace(mapper=dataclasses.replace(
+        cfg.mapper, translational_velocity_threshold=1e3, rotational_velocity_threshold=1e3))
+
+
+def circuit_sequence(num_scans, azimuth, workers=6, step=CIRCUIT_STEP, laps=CIRCUIT_LAPS, seed=CIRCUIT_SEED):
+    """The circuit of tools/endurance.py's build_sequence_streams (world,
+    ground truth, IMU and odometry streams) with every scan raycast up
+    front, in a thread pool: a port Sequence."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from locus_tpu_torch.io import dataset, synthetic
+
+    world, gt, _ = dataset.circuit_geometry(num_scans, step=step, laps=laps, seed=seed)
+
+    def scan(i):
+        return synthetic.simulate_scan(world, gt[i], azimuth_steps=azimuth, noise=0.005, seed=seed + i)
+
+    with ThreadPoolExecutor(workers) as pool:
+        scans = list(pool.map(scan, range(num_scans)))
+    bare = dataset.Sequence(scans=np.stack([p for p, _ in scans]), scan_valid=np.stack([v for _, v in scans]),
+                            stamps=np.arange(num_scans) / 10.0, gt_poses=gt)
+    return dataset._with_simulated_sensors(bare, rate_hz=10.0, seed=seed)
+
+
+def sensor_feeds(np, seq):
+    """Per scan, the (start, stop) of the IMU and the odometry samples fed
+    ahead of it: those stamped after the previous scan and up to this one
+    (tests/test_live.py:34-50, tools/live_endurance.py)."""
+    imu = np.searchsorted(seq.imu_stamps, seq.stamps, side="right")
+    odo = np.searchsorted(seq.odom_stamps, seq.stamps, side="right")
+    return [((imu[i - 1] if i else 0, imu[i]), (odo[i - 1] if i else 0, odo[i])) for i in range(len(seq))]
+
+
+def launch_delta(tnn, tmom, before):
+    return {k: v - before[k] for k, v in read_launches(tnn, tmom).items()}
+
+
+def add_counts(total, delta):
+    for k, v in delta.items():
+        total[k] = total.get(k, 0) + v
+
+
+def trajectory_errors(np, poses, gt):
+    from locus_tpu_torch.metrics import ate_rmse
+
+    n = poses.shape[0]
+    return ate_rmse(poses[:, :3, 3], gt[:n, :3, 3], align=False), float(np.linalg.norm(poses[-1, :3, 3] - gt[n - 1, :3, 3]))
+
+
+def serve_live(torch, np, cfg, seq, dev, workdir, resume_at=RESUME_AT, ab_scans=REF_SCANS):
+    """One robot served by LiveSession around `seq` with closures pushed
+    back (tools/live_endurance.py's loop), after a prewarm of the
+    push-back and of the backend's verification GICP and graph solve.
+    Returns the phase record and the poses."""
+    import shutil
+
+    from locus_tpu_torch import runner
+    from locus_tpu_torch.backend import PoseGraphBackend
+    from locus_tpu_torch.config import RegistrationConfig
+    from locus_tpu_torch.live import LiveSession
+    from locus_tpu_torch.ops import dispatch
+    from locus_tpu_torch.ops.kernels import build, moments as tmom, nn as tnn
+
+    n, feeds = len(seq), sensor_feeds(np, seq)
+    cap = cfg.raw_scan_capacity
+
+    def session(**kw):
+        return LiveSession(cfg=cfg, initial_pose=seq.gt_poses[0], device=dev, **kw)
+
+    def serve(sess, i):
+        (i0, i1), (o0, o1) = feeds[i]
+        for k in range(i0, i1):
+            sess.feed_imu(seq.imu_stamps[k], seq.imu_quats[k])
+        for k in range(o0, o1):
+            sess.feed_odom(seq.odom_stamps[k], seq.odom_poses[k])
+        return sess.process_scan(float(seq.stamps[i]), seq.scans[i], seq.scan_valid[i])
+
+    def verification(i):
+        xyz, mask = runner.pack_scan(seq.scans[i], seq.scan_valid[i], cap)
+        return runner.verification_cloud(torch.from_numpy(xyz).to(dev), torch.from_numpy(mask).to(dev), cfg)
+
+    def new_backend():
+        return PoseGraphBackend(registration=RegistrationConfig(**LOOP_REGISTRATION), device=dev, **LOOP_BACKEND)
+
+    # prewarm, as tools/live_endurance.py does before serving starts
+    warm = session()
+    serve(warm, 0)
+    warm.prewarm_loop_closure()
+    backend = new_backend()
+    backend.prewarm(verification(0), iterations=10)   # optimize()'s iteration count
+    warmed = (build.builds, len(build._libs), tnn.buffer_allocations)
+
+    ckpt = str(workdir / "live_ckpt.npz")
+    sess = session(checkpoint_path=ckpt, checkpoint_every=resume_at)
+    per_scan, per_closure = {}, {}
+    lat, poses, pushes = [], [], []
+    keyframes, attempts = 0, 0
+    reset_launches(tnn, tmom)
+    t_run = time.perf_counter()
+    for i in range(n):
+        before = read_launches(tnn, tmom)
+        t0 = time.perf_counter()
+        pose, out = serve(sess, i)
+        lat.append(time.perf_counter() - t0)
+        add_counts(per_scan, launch_delta(tnn, tmom, before))
+        poses.append(np.asarray(pose, np.float64))
+        if i + 1 == resume_at:
+            shutil.copy(ckpt, workdir / "live_resume.npz")
+        if out.keyframe_inserted:
+            before = read_launches(tnn, tmom)
+            backend.add_keyframe(float(seq.stamps[i]), pose, cloud=verification(i))
+            keyframes += 1
+            if keyframes % OPTIMIZE_EVERY == 0:
+                attempts += 1
+                if backend.try_close_loops() > 0:
+                    backend.optimize()
+                    sess.apply_loop_closure(backend.correction_for_latest(), backend.last_corrections)
+                    pushes.append(i)
+            add_counts(per_closure, launch_delta(tnn, tmom, before))
+    wall = time.perf_counter() - t_run
+    served = (build.builds, len(build._libs), tnn.buffer_allocations)
+    poses = np.stack(poses)
+    lat_ms = np.asarray(lat) * 1e3
+    ate, final = trajectory_errors(np, poses, seq.gt_poses)
+
+    # a second session resumed from the checkpoint repeats the next poses
+    resumed = session()
+    resumed.resume(str(workdir / "live_resume.npz"))
+    again = np.stack([np.asarray(serve(resumed, i)[0], np.float64) for i in range(resume_at, resume_at + RESUME_SCANS)])
+    # the first scans on the plain versions
+    with dispatch.no_kernels():
+        plain = session()
+        plain_poses = np.stack([np.asarray(serve(plain, i)[0], np.float64) for i in range(ab_scans)])
+    ab = np.abs(poses[:ab_scans, :3, 3] - plain_poses[:, :3, 3]).max(axis=1)
+    launches = dict(per_scan)
+    add_counts(launches, per_closure)
+    record = {
+        "phase": "live", "scans": n, "wall_s": wall,
+        "latency_ms_p50": float(np.median(lat_ms)), "latency_ms_max": float(lat_ms.max()),
+        "latency_ms_per_scan": [round(float(x), 3) for x in lat_ms],
+        "latency_ms_p95": float(np.percentile(lat_ms, 95)),
+        "share_within_100ms": float(np.mean(lat_ms < LATENCY_BUDGET_MS)),
+        "first_scan_ms": float(lat_ms[0]), "keyframes": keyframes, "closure_attempts": attempts,
+        "loops_found": backend.loops_found, "loop_factor_pairs": loop_pairs(backend),
+        "closures_pushed_back": len(pushes), "push_back_scans": pushes,
+        "ate_m": ate, "final_error_m": final,
+        "launches": launches, "launches_per_scan": {k: v / n for k, v in per_scan.items()},
+        "launches_keyframe_and_closure_work": per_closure,
+        "launches_per_closure_attempt": {k: v / max(attempts, 1) for k, v in per_closure.items()},
+        "kernel_builds_after_prewarm": served[0] - warmed[0], "kernels_loaded_after_prewarm": served[1] - warmed[1],
+        "buffer_allocations_after_prewarm": served[2] - warmed[2],
+        "resume_at": resume_at, "resume_bit_equal": bool(np.array_equal(again, poses[resume_at: resume_at + RESUME_SCANS])),
+        "push_back_inside_resume_window": any(resume_at - 1 <= s < resume_at + RESUME_SCANS - 1 for s in pushes),
+        "ab_scans": ab_scans, "ab_max_translation_m": float(ab.max()), "ab_per_scan_m": ab.tolist(),
+    }
+    if dev.type == "cuda":
+        # B2 on the map that the push-backs re-anchored, against its plain
+        # version, on the last scan's world points
+        pc = scan_for_checks(torch, cfg, [seq], n - 1, sess.state.voxel_leaf, dev)
+        _, bt, radius, args, query, target = nn_cases(torch, tnn, cfg, pc, sess.state, "")[1]
+        ok, row = check_nn(torch, tnn, build, "nn_visits_map_reanchored", bt, radius, args, query, target)
+        record["reanchored_map_check"] = row | {"ok": ok}
+        record["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return record, poses
+
+
+def loop_pairs(backend):
+    """The (i, j) keyframe pairs of the loop factors (the sequential ones
+    join k-1 and k)."""
+    return [[int(i), int(j)] for i, j, _, _ in backend.factors if j != i + 1]
+
+
+def live_problems(record):
+    """What fails the live phase."""
+    problems = []
+    if not math.isfinite(record["ate_m"]) or record["ate_m"] > ATE_LIMIT_M:
+        problems.append(f"live: ATE {record['ate_m']} m exceeds {ATE_LIMIT_M} m")
+    if record["closures_pushed_back"] < 1:
+        problems.append("live: no loop closure was pushed back")
+    if record["ab_max_translation_m"] > AB_LIMIT_M:
+        problems.append(f"live: kernels and plain versions differ by {record['ab_max_translation_m']} m")
+    if not record["resume_bit_equal"] or record["push_back_inside_resume_window"]:
+        problems.append("live: the session resumed from its checkpoint did not repeat the poses bit for bit")
+    if record["kernel_builds_after_prewarm"] or record["kernels_loaded_after_prewarm"] or record["buffer_allocations_after_prewarm"]:
+        problems.append("live: a kernel was built or a buffer allocated after the prewarm")
+    if min(record["launches_per_scan"][k] for k in SINGLE_PATH) <= 0:
+        problems.append(f"live: the served scans did not launch {SINGLE_PATH}: {record['launches_per_scan']}")
+    work = record["launches_keyframe_and_closure_work"]
+    if work.get("moments_visits", 0) <= 0 or work.get("nn_visits_scan", 0) <= 0:
+        problems.append(f"live: the keyframe clouds (B1) or the closure GICPs (B2) launched no kernel: {work}")
+    if not record.get("reanchored_map_check", {"ok": True})["ok"]:
+        problems.append("live: B2 on the re-anchored map disagrees with its plain version")
+    return problems
+
+
+def run_slam(torch, np, cfg, seq, dev, workdir, resume_at=RESUME_AT, ab_scans=REF_SCANS):
+    """runner.run_sequence(backend=) around `seq`; returns the phase record
+    and the poses."""
+    from locus_tpu_torch import checkpoint, pipeline, runner
+    from locus_tpu_torch.backend import PoseGraphBackend
+    from locus_tpu_torch.config import RegistrationConfig
+    from locus_tpu_torch.ops import dispatch
+    from locus_tpu_torch.ops.kernels import moments as tmom, nn as tnn
+
+    def new_backend():
+        return PoseGraphBackend(registration=RegistrationConfig(**LOOP_REGISTRATION), device=dev, **LOOP_BACKEND)
+
+    n = len(seq)
+    backend = new_backend()
+    reset_launches(tnn, tmom)
+    t0 = time.perf_counter()
+    poses, outputs, report = runner.run_sequence(seq, cfg, backend=backend, backend_optimize_every=OPTIMIZE_EVERY,
+                                                 device=dev)
+    wall = time.perf_counter() - t0
+    launches = read_launches(tnn, tmom)
+    ate, final = trajectory_errors(np, poses, seq.gt_poses)
+    dur = np.asarray(report.durations) * 1e3
+    # the first resume_at scans again, checkpointed, resumed for RESUME_SCANS
+    _, _, _, state = runner.run_sequence(seq, cfg, max_scans=resume_at, return_state=True, backend=new_backend(),
+                                         backend_optimize_every=OPTIMIZE_EVERY, device=dev)
+    path = str(workdir / "slam_ckpt.npz")
+    checkpoint.save_state(path, state)
+    state = checkpoint.load_state(path, pipeline.init_state(cfg, device=dev))
+    again = []
+    for i in range(resume_at, resume_at + RESUME_SCANS):
+        state, out = runner.replay_step(state, *runner.scan_inputs(seq, i, cfg, dev), cfg=cfg)
+        again.append(out.pose.cpu().numpy().astype(np.float64))
+    with dispatch.no_kernels():
+        plain, _, _ = runner.run_sequence(seq, cfg, max_scans=ab_scans, backend=new_backend(),
+                                          backend_optimize_every=OPTIMIZE_EVERY, device=dev)
+    ab = np.abs(poses[:ab_scans, :3, 3] - plain[:, :3, 3]).max(axis=1)
+    return {
+        "phase": "slam", "scans": n, "wall_s": wall,
+        "scans_per_s": n / wall, "step_ms_p50": float(np.median(dur)), "step_ms_max": float(dur.max()),
+        "keyframes": len(backend.keyframes), "loops_found": backend.loops_found,
+        "loop_factor_pairs": loop_pairs(backend),
+        "closures_pushed_back": backend.solves,   # run_sequence pushes back after every solve
+        "ate_m": ate, "final_error_m": final,
+        "launches": launches, "launches_per_scan": {k: v / n for k, v in launches.items()},
+        "resume_at": resume_at, "resume_bit_equal": bool(np.array_equal(np.stack(again), poses[resume_at: resume_at + RESUME_SCANS])),
+        "ab_scans": ab_scans, "ab_max_translation_m": float(ab.max()), "ab_per_scan_m": ab.tolist(),
+    }, poses
+
+
+def slam_problems(record):
+    problems = []
+    if not math.isfinite(record["ate_m"]) or record["ate_m"] > ATE_LIMIT_M:
+        problems.append(f"slam: ATE {record['ate_m']} m exceeds {ATE_LIMIT_M} m")
+    if record["closures_pushed_back"] < 1:
+        problems.append("slam: no loop closure was pushed back")
+    if record["ab_max_translation_m"] > AB_LIMIT_M:
+        problems.append(f"slam: kernels and plain versions differ by {record['ab_max_translation_m']} m")
+    if not record["resume_bit_equal"]:
+        problems.append("slam: the replay resumed from its checkpoint did not repeat the poses bit for bit")
+    if min(record["launches"][k] for k in SINGLE_PATH) <= 0:
+        problems.append(f"slam: the replay did not launch {SINGLE_PATH}: {record['launches']}")
+    return problems
 
 
 def device_time_ms(torch, fn, reps=20, warmup=3):
@@ -637,15 +935,34 @@ def main() -> int:
                 problems.append(f"{name}: kernels and plain versions differ by {record[name]['ab_max_translation_m']} m")
         if problems:
             raise RuntimeError("; ".join(problems))
+
+        # 9-10. live serving and the SLAM replay around the circuit; both
+        # run, then either's failure fails the script
+        scfg = serving_config(cfg)
+        workdir = ROOT / "chiprun_out" / "chip_smoke_work"
+        workdir.mkdir(parents=True, exist_ok=True)
+        for name, azimuth, run in (("live", LIVE_AZIMUTH, serve_live), ("slam", SLAM_AZIMUTH, run_slam)):
+            t0 = time.perf_counter()
+            circuit = circuit_sequence(CIRCUIT_SCANS, azimuth)
+            data_s = time.perf_counter() - t0
+            record[name] = run(torch, np, scfg, circuit, dev, workdir)[0] | {
+                "azimuth_steps": azimuth, "step_m": CIRCUIT_STEP, "laps": CIRCUIT_LAPS, "seed": CIRCUIT_SEED,
+                "backend": LOOP_BACKEND | LOOP_REGISTRATION, "data_seconds": data_s,
+            }
+            emit(record[name])
+        problems = live_problems(record["live"]) + slam_problems(record["slam"])
+        if problems:
+            raise RuntimeError("; ".join(problems))
     except Exception:
         traceback.print_exc()
         emit({"phase": "failed", "completed": list(record)})
         return 1
 
-    # B1/B2 summed over the single paths (the ring-map B2 rows over the
-    # paths with a ring map, the voxel-hash row over its own), B3/B4 from
+    # B1/B2 summed over the single paths, live serving and the SLAM replay
+    # (the ring-map B2 rows over the paths with a ring map, the voxel-hash
+    # row over its own), B3/B4 from
     # the batched replay; B5/B6 and B3 at B = 16 lie on no path
-    single = ("pipeline",) + tuple(PATHS)
+    single = ("pipeline",) + tuple(PATHS) + ("live", "slam")
     counts = {k: sum(record[p]["launches"][k] for p in single) for k in SINGLE_PATH}
     counts["nn_visits_map"] -= record["voxel_hash"]["launches"]["nn_visits_map"]
     counts[VOXEL_HASH_MAP] = record["voxel_hash"]["launches"]["nn_visits_map"]

@@ -10,6 +10,10 @@ the port. A stacked JAX state (the batched replay's: every leaf with a
 leading B) becomes the port's batched state the same way. Neither
 function imports JAX: they read plain attributes.
 
+`state_from_checkpoint` reads a checkpoint that the JAX package's
+`checkpoint.save_state` wrote (its leaves in the same tree order) into the
+port's LocusState, so a session can resume in the port where JAX stopped.
+
 Layouts that differ: the map's cached 1-NN operand is (8, m_pad) in the
 JAX package (rows -2x, -2y, -2z, |t|^2, then zeros) and (m_pad, 4) here.
 The map may be either structure: a ring `MapState` or a voxel-hash
@@ -22,6 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from locus_tpu_torch import checkpoint
 from locus_tpu_torch import config as cfg_mod
 from locus_tpu_torch import fusion, localization, odometry, pipeline
 from locus_tpu_torch.core.cloud import PointCloud
@@ -71,11 +76,11 @@ def state_from_numpy(tree, device) -> pipeline.LocusState:
     """The port's LocusState from a JAX LocusState with numpy leaves."""
     dev = torch.device(device)
     jmap = tree.map
-    nn_aug = np.swapaxes(np.asarray(jmap.nn_aug)[..., :4, :], -1, -2)   # (..., m_pad, 4)
+    nn_aug = _operand_rows(jmap.nn_aug)   # (..., m_pad, 4)
     map_state = _tuple(
         HashMapState if hasattr(jmap, "keys") else MapState, jmap, dev,
         cloud=lambda c: _cloud(c, dev),
-        nn_aug=lambda _: _tensor(np.ascontiguousarray(nn_aug), dev),
+        nn_aug=lambda _: _tensor(nn_aug, dev),
     )
     fuse = _tuple(
         fusion.FusionState, tree.fuse, dev,
@@ -94,3 +99,20 @@ def state_from_numpy(tree, device) -> pipeline.LocusState:
         open_space=_tensor(tree.open_space, dev),
         stats=_tuple(pipeline.Stats, tree.stats, dev),
     )
+
+
+def _operand_rows(nn_aug: np.ndarray) -> np.ndarray:
+    """The JAX (8, m_pad) operand as the port's (m_pad, 4) rows."""
+    return np.ascontiguousarray(np.swapaxes(np.asarray(nn_aug)[..., :4, :], -1, -2))
+
+
+def state_from_checkpoint(path: str, cfg: cfg_mod.LocusConfig, device) -> pipeline.LocusState:
+    """The port's LocusState from a checkpoint the JAX package wrote for the
+    same config (`save_state`): every leaf in tree order, the map operand
+    transposed to the port's layout, each shape checked."""
+    template = pipeline.init_state(cfg, device=device)
+
+    def convert(name, arr):
+        return _operand_rows(arr) if name[-2:] == ("map", "nn_aug") else arr
+
+    return checkpoint.load_state(path, template, convert=convert)

@@ -5,8 +5,9 @@ cascade and per-scan prior selection (counterpart of
 Buffers are fixed-size device tensors, one packed row per sample; a slot
 is valid iff its stamp is finite. All selection logic is branch-free
 tensor code, so it runs on the device without host reads. Every function
-also takes a state with one leading batch dimension (the batched replay:
-each robot its own buffers, pointers and lookups).
+but the single-sample pushes (`push_imu`, `push_odom`) also takes a state
+with one leading batch dimension (the batched replay: each robot its own
+buffers, pointers and lookups).
 """
 from __future__ import annotations
 
@@ -128,6 +129,46 @@ def init_state(cfg: FusionConfig, device=None) -> FusionState:
 # Ingestion (ImuCallback / OdometryCallback equivalents)
 # ---------------------------------------------------------------------------
 
+def _ring_put(buf, row: torch.Tensor, ok: torch.Tensor, wall: torch.Tensor):
+    """Write one packed row at the ring pointer when `ok` holds; the
+    reception stamp becomes `wall`."""
+    i = (buf.ptr.to(torch.int64) % buf.data.shape[0]).reshape(1)
+    data = buf.data.index_put((i,), row[None])
+    return type(buf)(
+        torch.where(ok, data, buf.data),
+        torch.where(ok, buf.ptr + 1, buf.ptr),
+        torch.where(ok, wall, buf.last_reception),
+    )
+
+
+def _sample_stamps(buf, stamp, wall_time):
+    dev = buf.data.device
+    s = torch.as_tensor(stamp, dtype=torch.float32, device=dev).reshape(1)
+    wall = s[0] if wall_time is None else torch.as_tensor(wall_time, dtype=torch.float32, device=dev)
+    return s, wall
+
+
+def push_imu(state: FusionState, stamp, quat_wxyz, wall_time=None) -> FusionState:
+    """Insert one IMU orientation sample (Locus.cc:356-372); `wall_time`
+    (default: the stamp) is its reception time for the health check. NaN
+    samples are dropped (CheckNans, Locus.cc:733-743)."""
+    b = state.imu
+    s, wall = _sample_stamps(b, stamp, wall_time)
+    quat = torch.as_tensor(quat_wxyz, dtype=torch.float32, device=b.data.device)
+    ok = ~torch.any(torch.isnan(quat))
+    return state._replace(imu=_ring_put(b, torch.cat([s, quat]), ok, wall))
+
+
+def push_odom(state: FusionState, stamp, pose_4x4, wall_time=None) -> FusionState:
+    """Insert one odometry pose sample (Locus.cc:374-399); NaN samples are
+    dropped."""
+    b = state.odom
+    s, wall = _sample_stamps(b, stamp, wall_time)
+    pose = torch.as_tensor(pose_4x4, dtype=torch.float32, device=b.data.device)
+    ok = ~torch.any(torch.isnan(pose))
+    return state._replace(odom=_ring_put(b, _pack_pose_rows(s, pose[None])[0], ok, wall))
+
+
 def _ring_append(data, ptr, last_reception, stamps, rows, ok):
     """Append the rows where `ok` holds, in order, at the ring pointer;
     the others are dropped (written to a scratch row that is cut off)."""
@@ -236,6 +277,9 @@ def integrate_sensors(state: FusionState, stamp, now, cfg: FusionConfig, prev_st
     mode = cfg.data_integration_mode
     dev = state.odom.data.device
     identity = se3.identity(dev)
+    stamp, now = (torch.as_tensor(t, dtype=torch.float32, device=dev) for t in (stamp, now))
+    if prev_stamp is not None:
+        prev_stamp = torch.as_tensor(prev_stamp, dtype=torch.float32, device=dev)
 
     choose_odom = is_odom_healthy(state, now, cfg) & (mode >= 3)
     choose_imu = (~choose_odom) & is_imu_healthy(state, now, cfg) & (mode >= 1)

@@ -78,6 +78,13 @@ def transform_points_to_sensor_frame(state: LocalizationState, cloud: PointCloud
     return cloud.transform(se3.inverse(predicted_pose(state)))
 
 
+def set_integrated_estimate(state: LocalizationState, pose) -> LocalizationState:
+    """External pose reset hook for a loop-closure backend
+    (PointCloudLocalization.h:114-117)."""
+    dev = state.integrated.device
+    return state._replace(integrated=torch.as_tensor(pose, dtype=torch.float32).to(dev).clone())
+
+
 def normalize_cloud_points(xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """normalizePCloud (utils.cc): center at the centroid and scale so the
     mean distance to the origin is 1."""
@@ -111,6 +118,14 @@ def covariance_from_ap_eig(ap_eigval, ap_eigvec, icp_max_covariance: float):
     cov_c = torch.where(bad[..., None, None], eye * icp_max_covariance, cov_c)
     condition_number = torch.amax(clamped, dim=-1) / torch.clamp(torch.amin(clamped, dim=-1), min=1e-30)
     return cov_c, condition_number
+
+
+def point2plane_covariance(Ap: torch.Tensor, icp_max_covariance: float):
+    """cov = 0.05^2 Ap^-1, eigenvalues clamped to [1e-12,
+    icp_max_covariance], and the condition number of the clamped spectrum
+    (.cc:469-541), from one Jacobi eigendecomposition of Ap."""
+    eigval, eigvec = jacobi_eigh(0.5 * (Ap + Ap.transpose(-1, -2)))
+    return covariance_from_ap_eig(eigval, eigvec, icp_max_covariance)
 
 
 def compute_observability(Ap: torch.Tensor):

@@ -9,7 +9,9 @@ the robot. Map 1-NN runs on kernel B2 at BT against a cached operand
 boxes, both maintained incrementally.
 
 Inserts and refreshes run every scan as masked passes (`enabled`): a
-disabled call leaves the state bit-identical. This slice is the unsharded
+disabled call leaves the state bit-identical. A loop closure moves the
+stored points by their keyframe's correction (`reanchor`), which rebuilds
+the operand and the chunk boxes from the moved points. This slice is the unsharded
 map; the sharded map comes with ROADMAP item A16.
 
 Every function also takes a state with one leading batch dimension (the
@@ -25,6 +27,7 @@ import torch
 
 from locus_tpu_torch.config import MapperConfig
 from locus_tpu_torch.core.cloud import PAD_COORD, PointCloud, take_rows
+from locus_tpu_torch.geometry import se3
 from locus_tpu_torch.ops.dispatch import resolve_device
 from locus_tpu_torch.ops.kernels.nn import (
     BT,
@@ -176,6 +179,43 @@ def refresh_msw(
     )
 
 
+def moved_by_keyframe(state, corrections: torch.Tensor):
+    """The stored cloud with each point moved by its keyframe's correction
+    (`corrections` (K,4,4), row k = T_new_k @ inv(T_old_k)), and the mask
+    of the points it moved: those of keyframes 0..K-1. Slots without
+    provenance (kf_index -1, e.g. a ground-truth map) stay in place."""
+    K = corrections.shape[0]
+    kf = state.kf_index.to(torch.int64)
+    C = corrections.to(state.cloud.xyz)[torch.clamp(kf, 0, K - 1)]      # (M,4,4)
+    move = (kf >= 0) & (kf < K) & state.cloud.mask
+    R = se3.rotation(C)
+    xyz = se3.matvec(R, state.cloud.xyz) + se3.translation(C)
+    nrm = se3.matvec(R, state.cloud.normals)
+    cloud = PointCloud(
+        torch.where(move[:, None], xyz, state.cloud.xyz),
+        torch.where(move[:, None], nrm, state.cloud.normals),
+        state.cloud.intensity,
+        state.cloud.mask,
+    )
+    return cloud, move
+
+
+def reanchor(state: MapState, corrections: torch.Tensor, cfg: MapperConfig) -> MapState:
+    """Re-anchor the stored map after a pose-graph (loop-closure)
+    correction: the world points p = T_old @ p_sensor of keyframe k move to
+    corrections[k] @ p. The reference leaves the map to its backend
+    (PointCloudLocalization.h:114-117 only resets the pose); this map is
+    owned here, so the scan-to-submap target must follow the corrected
+    trajectory. The cached operand and chunk boxes are rebuilt from the
+    moved points: boxes left stale would prune true neighbours silently."""
+    if state.cloud.mask.dim() != 1:
+        raise NotImplementedError("reanchor of a batched map: ROADMAP A15b")
+    cloud, _ = moved_by_keyframe(state, corrections)
+    nn_aug = build_nn_target(cloud.xyz, m_pad=state.nn_aug.shape[0])
+    c_min, c_max = chunk_boxes(cloud.xyz, cloud.mask, nn_aug.shape[0])
+    return state._replace(cloud=cloud, nn_aug=nn_aug, chunk_min=c_min, chunk_max=c_max)
+
+
 def approx_nearest_neighbors(
     state: MapState, query: PointCloud, return_d2: bool = False, radius: float = 2.0
 ):
@@ -200,3 +240,14 @@ def approx_nearest_neighbors(
 
 def map_size(state: MapState) -> torch.Tensor:
     return state.cloud.count()
+
+
+def snapshot_to_pcd(state, path: str) -> int:
+    """Write the stored map to a PCD file (the reference's map snapshot via
+    pointcloud_to_pcd); returns the number of points written."""
+    from locus_tpu_torch.io import pcd
+
+    mask = state.cloud.mask.cpu().numpy()
+    xyz, normals, intensity = (a.cpu().numpy()[mask] for a in state.cloud[:3])
+    pcd.write_pcd(path, xyz, normals=normals, intensity=intensity)
+    return int(mask.sum())

@@ -20,8 +20,7 @@ scatter applies them in order (the last wins); here the winner is picked
 explicitly (`core.cloud.last_writes`), so the card's store equals the
 CPU's and JAX's.
 
-Unsharded, single path (the batched step raises, ROADMAP A15b);
-`reanchor` and `snapshot_to_pcd` come with ROADMAP A14.
+Unsharded, single path (the batched step raises, ROADMAP A15b).
 """
 from __future__ import annotations
 
@@ -160,6 +159,20 @@ def refresh_msw(
     return new._replace(occupied=new.cloud.mask)
 
 
+def reanchor(state: HashMapState, corrections: torch.Tensor, cfg: MapperConfig) -> HashMapState:
+    """Loop-closure re-anchoring (see `keyframe_map.reanchor`). The voxel
+    keys of the moved points are recomputed so same-voxel dedup keeps
+    working; slots keep their hash location, so a moved point may sit in a
+    slot its new key would not hash to, and a later insert of that voxel
+    lands in a second slot (one transient duplicate a voxel, cleared by the
+    next MSW refresh), as in the JAX package."""
+    cloud, move = _ring.moved_by_keyframe(state, corrections)
+    keys = torch.where(move[:, None], _voxel_ijk(cloud.xyz, cfg.map_voxel_leaf), state.keys)
+    nn_aug = build_nn_target(cloud.xyz, m_pad=state.nn_aug.shape[0])
+    c_min, c_max = chunk_boxes(cloud.xyz, cloud.mask, nn_aug.shape[0])
+    return state._replace(cloud=cloud, keys=keys, nn_aug=nn_aug, chunk_min=c_min, chunk_max=c_max)
+
+
 def approx_nearest_neighbors(state: HashMapState, query: PointCloud, return_d2: bool = False, radius: float = 2.0):
     """The ring store's query (kernel B2 at BT on the cached operand)."""
     return _ring.approx_nearest_neighbors(state, query, return_d2=return_d2, radius=radius)
@@ -167,3 +180,6 @@ def approx_nearest_neighbors(state: HashMapState, query: PointCloud, return_d2: 
 
 def map_size(state: HashMapState) -> torch.Tensor:
     return state.cloud.count()
+
+
+snapshot_to_pcd = _ring.snapshot_to_pcd

@@ -29,6 +29,9 @@ NVCC_FLAGS = (
 _libs: dict[str, ctypes.CDLL] = {}
 # ptxas resource report of each build made in this process
 build_logs: dict[str, str] = {}
+# nvcc builds started in this process (a server that has warmed up builds
+# none while it serves)
+builds = 0
 
 
 def _nvcc() -> str:
@@ -47,6 +50,7 @@ def _lib_path(name: str) -> Path:
 def build(names=KERNELS) -> dict[str, float]:
     """Compile the named kernels that are not built yet, all at once.
     Returns the seconds each build took (0.0 for one already built)."""
+    global builds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = {}
     seconds = {name: 0.0 for name in names}
@@ -57,6 +61,7 @@ def build(names=KERNELS) -> dict[str, float]:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        builds += 1
         started[name] = (proc, tmp, out, time.perf_counter())
     failures = []
     for name, (proc, tmp, out, t0) in started.items():

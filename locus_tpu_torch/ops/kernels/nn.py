@@ -265,6 +265,9 @@ _device_state: dict[tuple[torch.device, str], tuple[int, torch.Tensor]] = {}
 # counter buffers replaced by larger ones, kept alive for CUDA graphs that
 # captured a launch on them
 _retired: list[torch.Tensor] = []
+# counter buffers made or grown in this process (a server that has warmed
+# up allocates none while it serves)
+buffer_allocations = 0
 
 
 def _device_buffers(dev: torch.device, num_counters: int, family: str = "nn"):
@@ -272,6 +275,7 @@ def _device_buffers(dev: torch.device, num_counters: int, family: str = "nn"):
     B2/B3's; B5/B6 keep one per stream), at least `num_counters` long. The
     buffer is zeroed once, when it is made or grown; every launch leaves it
     at 0."""
+    global buffer_allocations
     sms, counters = _device_state.get((dev, family), (None, None))
     if counters is None or counters.numel() < num_counters:
         if torch.cuda.is_current_stream_capturing():
@@ -285,6 +289,7 @@ def _device_buffers(dev: torch.device, num_counters: int, family: str = "nn"):
         else:
             _retired.append(counters)
         counters = torch.zeros(max(num_counters, 1 << 14), dtype=torch.int32, device=dev)
+        buffer_allocations += 1
         _device_state[(dev, family)] = (sms, counters)
     return sms, counters
 

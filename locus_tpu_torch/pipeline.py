@@ -243,6 +243,12 @@ def init_state_from_config(
     return init_state(cfg, initial_pose, device=dev)
 
 
+def set_open_space(state: LocusState, open_space) -> LocusState:
+    """Localizer-space-monitor hook (Locus.cc:316-319, 571-576): switch the
+    keyframe thresholds between the open- and closed-space profiles."""
+    return state._replace(open_space=torch.as_tensor(open_space, dtype=torch.bool).to(state.open_space.device))
+
+
 def preprocess(raw: PointCloud, leaf, cfg: LocusConfig, generator: Optional[torch.Generator] = None,
                open_space=None) -> PointCloud:
     """body crop -> voxel grid at the runtime leaf -> the optional filters

@@ -742,3 +742,110 @@ def test_paths_on_the_card_match_plain(cuda_device, name):
     with dispatch.no_kernels():
         plain, _, _ = runner.run_sequence(seq, cfg, device=cuda_device)
     np.testing.assert_array_equal(poses, plain)
+
+
+# -- live serving and the SLAM backend -------------------------------------
+
+def test_reanchored_map_nearest_matches_plain_and_brute_force(cuda_device):
+    """After a loop-closure reanchor that moves a keyframe out of its
+    chunk's old box, B2 at BT on the rebuilt operand and boxes equals its
+    plain version and a brute-force search (the boxes were rebuilt)."""
+    from locus_tpu_torch.geometry import se3
+    from locus_tpu_torch.mapping import keyframe_map
+
+    rng = np.random.default_rng(0)
+    mcfg = cfg_mod.MapperConfig(map_capacity=8192, keyframe_capacity=2048, map_voxel_leaf=0.05)
+    mp = keyframe_map.init_map(mcfg)
+    for k in range(3):
+        pts = (rng.normal(size=(2048, 3)) * 2 + [20.0 * k, 0, 0]).astype(np.float32)
+        mp = keyframe_map.insert_keyframe(mp, PointCloud.from_points(pts, capacity=2048, device=cuda_device), mcfg)
+    corr = torch.eye(4, device=cuda_device).repeat(3, 1, 1)
+    corr[1, :3, 3] = torch.tensor([0.3, 10.0, 0.1])
+    corr[2] = se3.make_transform(se3.so3_exp(torch.tensor([0.0, 0.0, 0.1], device=cuda_device)),
+                                 torch.tensor([-0.1, 0.4, 0.0], device=cuda_device))
+    mp = keyframe_map.reanchor(mp, corr, mcfg)
+    xyz, kf = np_(mp.cloud.xyz), np_(mp.kf_index)
+    blocks = []
+    for k in range(3):
+        pick = xyz[kf == k][rng.choice(int((kf == k).sum()), 192)] + rng.normal(size=(192, 3)) * 0.3
+        blocks.append(pick[np.argsort(pick[:, 1])])
+    q = torch.as_tensor(np.concatenate(blocks).astype(np.float32), device=cuda_device)
+    before = tnn.launches[tnn.BT]
+    d2, idx = keyframe_map._map_nearest(mp, q, 1.5)
+    torch.cuda.synchronize()
+    assert tnn.launches[tnn.BT] == before + 1
+    with dispatch.no_kernels():
+        pd2, pidx = keyframe_map._map_nearest(mp, q, 1.5)
+    np.testing.assert_array_equal(np_(d2), np_(pd2))
+    np.testing.assert_array_equal(np_(idx), np_(pidx))
+    slot = np.nonzero(np_(mp.cloud.mask))[0]
+    full = ((np_(q)[:, None, :].astype(np.float64) - xyz[slot][None]) ** 2).sum(-1)
+    hit = full.min(1) <= 1.5 ** 2
+    np.testing.assert_array_equal(np.isfinite(np_(d2)), hit)
+    np.testing.assert_array_equal(np_(idx)[hit], slot[full.argmin(1)[hit]])
+
+
+def test_closure_gicp_matches_plain(cuda_device):
+    """A loop-closure verification (GICP of two keyframe clouds preprocessed
+    at the fixed 0.5 m leaf, on B2 at SCAN_BT) equals its plain run."""
+    from locus_tpu_torch.backend import PoseGraphBackend
+
+    cfg = _small_cfg()
+    seq = make_tunnel_sequence(num_scans=12, azimuth_steps=900, step=0.3, seed=4)
+
+    def cloud(i):
+        xyz, mask = runner.pack_scan(seq.scans[i], seq.scan_valid[i], cfg.raw_scan_capacity)
+        return runner.verification_cloud(torch.as_tensor(xyz, device=cuda_device),
+                                          torch.as_tensor(mask, device=cuda_device), cfg)
+
+    def verify():
+        b = PoseGraphBackend(loop_distance=10.0, min_index_gap=1, loop_fitness_max=1.0)
+        for i in (0, 11):
+            b.add_keyframe(float(seq.stamps[i]), seq.gt_poses[i], cloud=cloud(i))
+        return b.verify_loop(0, 1)
+
+    before = tnn.launches[tnn.SCAN_BT]
+    T = verify()
+    assert T is not None and tnn.launches[tnn.SCAN_BT] > before
+    with dispatch.no_kernels():
+        plain = verify()
+    np.testing.assert_array_equal(T, plain)
+
+
+def test_live_session_matches_replay_and_prewarm_holds(cuda_device):
+    """LiveSession on the card (one upload, one fetch a scan) gives the
+    replay's poses bit for bit when fed the replay's sensor windows; after
+    prewarm_loop_closure and the backend's prewarm, serving and a closure
+    push-back build no kernel and allocate no counter buffer."""
+    from locus_tpu_torch.backend import PoseGraphBackend
+    from locus_tpu_torch.io.dataset import sensor_windows_for_scan
+    from locus_tpu_torch.live import LiveSession
+    from locus_tpu_torch.ops.kernels import build
+
+    cfg = _small_cfg()
+    seq = make_tunnel_sequence(num_scans=6, azimuth_steps=256, step=0.3, seed=1)
+    replay, _, _ = runner.run_sequence(seq, cfg)
+    warm = LiveSession(cfg=cfg, initial_pose=seq.gt_poses[0])
+    warm.process_scan(float(seq.stamps[0]), seq.scans[0], seq.scan_valid[0])
+    warm.prewarm_loop_closure()
+    xyz, mask = runner.pack_scan(seq.scans[0], seq.scan_valid[0], cfg.raw_scan_capacity)
+    backend = PoseGraphBackend()
+    backend.prewarm(runner.verification_cloud(torch.as_tensor(xyz).cuda(), torch.as_tensor(mask).cuda(), cfg))
+    counts = (build.builds, len(build._libs), tnn.buffer_allocations)
+    sess = LiveSession(cfg=cfg, initial_pose=seq.gt_poses[0])
+    poses = []
+    for i in range(len(seq)):
+        (imu_s, imu_q), (odom_s, odom_p) = sensor_windows_for_scan(seq, i)
+        for s, q in zip(imu_s, imu_q):
+            if np.isfinite(s):
+                sess.feed_imu(s, q)
+        for s, p in zip(odom_s, odom_p):
+            if np.isfinite(s):
+                sess.feed_odom(s, p)
+        poses.append(sess.process_scan(float(seq.stamps[i]), seq.scans[i], seq.scan_valid[i])[0])
+    np.testing.assert_array_equal(np.stack(poses).astype(np.float64), replay)
+    shift = np.eye(4, dtype=np.float32)
+    shift[0, 3] = 0.05
+    sess.apply_loop_closure(shift @ poses[-1], np.tile(shift, (3, 1, 1)))
+    sess.process_scan(float(seq.stamps[-1]) + 0.1, seq.scans[-1], seq.scan_valid[-1])
+    assert (build.builds, len(build._libs), tnn.buffer_allocations) == counts

@@ -75,6 +75,33 @@ def test_entry_points_need_a_card_unless_asked(monkeypatch):
     assert state.map.nn_aug.device.type == "cpu"
 
 
+def test_serving_entry_points_need_a_card_unless_asked(monkeypatch):
+    """LiveSession, the pose-graph backend and its solver, and the replay
+    with a backend run on the card unless given device="cpu"."""
+    import numpy as np
+
+    from locus_tpu_torch import runner
+    from locus_tpu_torch.backend import PoseGraphBackend
+    from locus_tpu_torch.config import LocusConfig
+    from locus_tpu_torch.io.dataset import make_tunnel_sequence
+    from locus_tpu_torch.live import LiveSession
+    from locus_tpu_torch.parallel import posegraph
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    eye = np.eye(4, dtype=np.float32)[None]
+    for make in (
+        lambda: LiveSession(cfg=LocusConfig()),
+        lambda: PoseGraphBackend(),
+        lambda: posegraph.make_graph(eye, [0], [0], eye),
+        lambda: runner.run_sequence(make_tunnel_sequence(num_scans=1, azimuth_steps=64, seed=0), LocusConfig(),
+                                    backend=PoseGraphBackend(device="cpu")),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert LiveSession(cfg=LocusConfig(), device="cpu").state.map.nn_aug.device.type == "cpu"
+    assert posegraph.make_graph(eye, [0], [0], eye, device="cpu").poses.device.type == "cpu"
+
+
 def test_chip_smoke_refuses_without_a_card_or_checkout(tmp_path):
     r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True, text=True, timeout=120)
     if torch.cuda.is_available():

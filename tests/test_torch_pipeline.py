@@ -12,8 +12,18 @@
     the voxel-hash map, keyframes at map resolution, and the grid,
     outlier and radius filters; the in-graph space monitor scan by scan;
     and the ground-truth-map bootstrap from a PCD.
+(e) The other sensor-fusion modes on (b)'s tunnel (`_mode_case`): pure
+    lidar odometry with the flat-ground projection (mode 0); the IMU
+    prior from an IMU mounted at 90 degrees of roll, converted to the base
+    frame (mode 1, b_convert_imu_to_base_link_frame); the yaw-only IMU
+    prior with the IMU silent for 0.5 s, longer than the health timeout,
+    so that the cascade fails over to lidar odometry and back (mode 2);
+    and the spot profile (mode 1 with interpolated odometry and 25
+    scan-to-submap iterations, LocusConfig.robot_profile("spot")). Prior
+    sources must be equal scan by scan; every replay passes the
+    transform-threshold gate.
 
-Tolerances of (b), (c) and (d): pose within 1e-2 m and 1e-2 rad per scan,
+Tolerances of (b) to (e): pose within 1e-2 m and 1e-2 rad per scan,
 keyframe decisions equal, map size within 0.5 %. The pose tolerance is
 what f32 allows on this sequence, not what the port would like: in
 several scans the scan-to-submap GICP ends on its iteration cap without
@@ -35,7 +45,7 @@ import torch
 
 from locus_tpu import pipeline as jpl
 from locus_tpu import runner as jrunner
-from locus_tpu.config import FusionConfig
+from locus_tpu.config import FusionConfig, LocusConfig
 from locus_tpu.io.dataset import Sequence, make_tunnel_sequence
 from locus_tpu_torch import runner as trunner
 from locus_tpu_torch.convert import config_from_dict, state_from_numpy
@@ -167,6 +177,59 @@ def test_configuration_matches_jax(tunnel, name):
         assert abs(a["map_size"] - b["map_size"]) <= MAP_SIZE_RTOL * b["map_size"], (a, b)
         assert a["num_points"] == b["num_points"]
         assert a["voxel_leaf"] == pytest.approx(b["voxel_leaf"], rel=1e-6)
+
+
+def _quat_mul(a, b):
+    w1, x1, y1, z1 = a
+    w2, x2, y2, z2 = b
+    return np.array([w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2, w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                     w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2, w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2])
+
+
+def _mode_case(name, tunnel):
+    """(JAX config, sequence) of a fusion-mode replay of (e)."""
+    base = small_cfg()
+    fusion = base.fusion
+    if name == "mode0_flat_ground":
+        return base.replace(fusion=R(fusion, data_integration_mode=0), b_is_flat_ground_assumption=True), tunnel
+    if name == "mode1_imu_mounted":
+        q_bi = np.array([np.cos(np.pi / 4), np.sin(np.pi / 4), 0.0, 0.0])      # 90 degrees of roll
+        quats = np.stack([_quat_mul(q, q_bi) for q in tunnel.imu_quats])       # the IMU's own orientation
+        cfg = base.replace(fusion=R(fusion, data_integration_mode=1, b_convert_imu_to_base_link_frame=True,
+                                    imu_to_base_quat=tuple(float(v) for v in q_bi)))
+        return cfg, dataclasses.replace(tunnel, imu_quats=quats)
+    if name == "mode2_imu_outage":
+        keep = (tunnel.imu_stamps < 0.35) | (tunnel.imu_stamps > 0.85)
+        seq = dataclasses.replace(tunnel, imu_stamps=tunnel.imu_stamps[keep], imu_quats=tunnel.imu_quats[keep])
+        return base.replace(fusion=R(fusion, data_integration_mode=2)), seq
+    assert name == "spot"
+    spot = LocusConfig.robot_profile("spot")
+    return base.replace(fusion=R(fusion, data_integration_mode=spot.fusion.data_integration_mode,
+                                 b_integrate_interpolated_odom=spot.fusion.b_integrate_interpolated_odom),
+                        localization=spot.localization), tunnel
+
+
+@pytest.mark.parametrize("name", ["mode0_flat_ground", "mode1_imu_mounted", "mode2_imu_outage", "spot"])
+def test_fusion_mode_matches_jax(tunnel, name):
+    jcfg, seq = _mode_case(name, tunnel)
+    jp, jo, _ = jrunner.run_sequence(seq, jcfg)
+    tp, to, _ = trunner.run_sequence(_port_seq(seq), _port_cfg(jcfg), device="cpu")
+    _assert_poses_close(tp, jp)
+    assert [o["prior_source"] for o in to] == [o["prior_source"] for o in jo]
+    assert [o["keyframe_inserted"] for o in to] == [o["keyframe_inserted"] for o in jo]
+    assert all(o["scan_to_map_accepted"] for o in to[1:])
+    for a, b in zip(to, jo):
+        assert abs(a["map_size"] - b["map_size"]) <= MAP_SIZE_RTOL * b["map_size"], (a, b)
+        assert a["num_points"] == b["num_points"]
+    sources = {o["prior_source"] for o in to}
+    expected = {"mode0_flat_ground": {0}, "mode1_imu_mounted": {0, 1}, "mode2_imu_outage": {0, 2},
+                "spot": {0, 1}}[name]
+    assert sources == expected, sources
+    if name == "mode0_flat_ground":
+        assert np.abs(tp[:, 2, 3] - tp[0, 2, 3]).max() < 1e-6     # no vertical motion
+    if name == "mode2_imu_outage":
+        lo = [i for i, o in enumerate(to) if o["prior_source"] == 0 and i > 1]
+        assert lo and max(lo) < len(to) - 2, [o["prior_source"] for o in to]   # failed over, then back
 
 
 def test_space_monitor_matches_jax(tunnel):

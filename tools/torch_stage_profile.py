@@ -17,7 +17,11 @@ and host ops.
         [--robots 1] [--out chiprun_out/stage_profile.json]
 
 With --config ndt|features|voxel_hash it profiles another single-card path
-(chip_smoke.path_config, on chip_smoke.path_sequence's replay).
+(chip_smoke.path_config, on chip_smoke.path_sequence's replay). With
+--config live it profiles live serving: LiveSession.process_scan (the
+step with one upload and one fetch a scan, IMU and odometry fed ahead)
+on the first scans of chip_smoke.py's live circuit (900 azimuth steps,
+the serving config); a scan is then timed up to the pose on the host.
 
 With --robots B > 1 it profiles the batched step instead: B robots, each
 on its own tunnel (chip_smoke.py's batched phase: steps 0.30, 0.35, ...,
@@ -66,12 +70,43 @@ def _wait_sites(events, waits, cuda, n):
     return sites
 
 
+def live_steps(torch, num_scans, dev):
+    """step(state, i) serving scan i of chip_smoke.py's live circuit
+    through one LiveSession: the session's state is set to `state` first
+    (None: the state it holds), the scan's IMU and odometry samples are
+    fed, and process_scan returns the pose on the host. Returns (step,
+    the serving config)."""
+    import numpy as np
+
+    from chip_smoke import LIVE_AZIMUTH, circuit_sequence, production_config, sensor_feeds, serving_config
+    from locus_tpu_torch import config as cfg_mod
+    from locus_tpu_torch.live import LiveSession
+
+    cfg = serving_config(production_config(cfg_mod))
+    seq = circuit_sequence(num_scans, LIVE_AZIMUTH)
+    feeds = sensor_feeds(np, seq)
+    sess = LiveSession(cfg=cfg, initial_pose=seq.gt_poses[0], device=dev)
+
+    def step(state, i):
+        if state is not None:
+            sess.state = state
+        (i0, i1), (o0, o1) = feeds[i]
+        for k in range(i0, i1):
+            sess.feed_imu(seq.imu_stamps[k], seq.imu_quats[k])
+        for k in range(o0, o1):
+            sess.feed_odom(seq.odom_stamps[k], seq.odom_poses[k])
+        _, out = sess.process_scan(float(seq.stamps[i]), seq.scans[i], seq.scan_valid[i])
+        return sess.state, out
+
+    return step, cfg
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scans", type=int, default=48)
     ap.add_argument("--traced", type=int, default=8, help="scans traced at the end of the replay")
     ap.add_argument("--robots", type=int, default=1, help="robots of the batched step (1: the single step)")
-    ap.add_argument("--config", choices=("gicp", "ndt", "features", "voxel_hash"), default="gicp",
+    ap.add_argument("--config", choices=("gicp", "ndt", "features", "voxel_hash", "live"), default="gicp",
                     help="the single-card path (the batched step runs gicp only)")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "stage_profile.json"))
     args = ap.parse_args()
@@ -91,8 +126,14 @@ def main() -> int:
     from locus_tpu_torch.io.dataset import make_tunnel_sequence
 
     dev = torch.device("cuda")
-    cfg = path_config(production_config(cfg_mod), args.config)
-    if args.robots == 1:
+    if args.config == "live":
+        step, cfg = live_steps(torch, args.scans, dev)
+    else:
+        cfg = path_config(production_config(cfg_mod), args.config)
+    if args.config == "live":
+        state = None
+        inputs = list(range(args.scans))
+    elif args.robots == 1:
         seq = path_sequence(
             dataset, args.config,
             make_tunnel_sequence(num_scans=args.scans, azimuth_steps=1800, step=0.35, seed=0), num_scans=args.scans,
@@ -109,9 +150,13 @@ def main() -> int:
             tuple(torch.stack(x) for x in zip(*(runner.scan_inputs(s, i, cfg, dev) for s in seqs)))
             for i in range(args.scans)
         ]
+    if args.config != "live":
+        def step(state, i):
+            return runner.replay_step(state, *inputs[i], cfg=cfg)
+
     first = args.scans - args.traced
     for i in range(first):
-        state, _ = runner.replay_step(state, *inputs[i], cfg=cfg)
+        state, _ = step(state, i)
     torch.cuda.synchronize()
 
     # untraced: the same scans from the same state, without the profiler
@@ -120,7 +165,7 @@ def main() -> int:
     t0 = time.perf_counter()
     st = state
     for i in range(first, args.scans):
-        st, _ = runner.replay_step(st, *inputs[i], cfg=cfg)
+        st, _ = step(st, i)
     torch.cuda.synchronize()
     untraced_s = time.perf_counter() - t0
 
@@ -128,8 +173,8 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(first, args.scans):
-            state, out = runner.replay_step(state, *inputs[i], cfg=cfg)
-            iters.append((out.odom_iterations.tolist(), out.loc_iterations.tolist()))
+            state, out = step(state, i)
+            iters.append((torch.as_tensor(out.odom_iterations).tolist(), torch.as_tensor(out.loc_iterations).tolist()))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     n = args.traced
