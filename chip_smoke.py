@@ -10,9 +10,10 @@ Phases, each printing one JSON line:
  1. device     card name and the nvidia-smi power limit
  2. build      nvcc of every kernel source, all at once
  3. reference  the first 8 scans of the production tunnel replay, the
-               first 8 ticks of the 4-robot batched replay, and the first 8
-               scans of each path of phase 8, with the kernels' plain
-               PyTorch versions (`no_kernels()`), on the card
+               first 8 ticks of the 4-robot batched replay, the first 8
+               scans of each path of phase 8 and the first 8 ticks of each
+               batched path of phase 12, with the kernels' plain PyTorch
+               versions (`no_kernels()`), on the card
  4. kernels    each kernel at the shapes the main paths give it (inputs
                from the reference runs' states; B5 on B1's inputs, B6 on
                B4's), against its plain version on the same inputs, timed
@@ -24,7 +25,9 @@ Phases, each printing one JSON line:
                is held to the plain version's results on every row (B2/B3
                score bits and index, B1/B4-B6 the ten sums). B2 map also
                runs on the voxel-hash operand (from the voxel_hash path's
-               reference state). One informational row, B3 map at B = 16
+               reference state), and B3 map on the 4 robots' voxel-hash
+               operands (from the batched_voxel_hash reference state,
+               every chunk visited). One informational row, B3 map at B = 16
                (the four robots' inputs stacked four times), lies on no path
  5. pipeline   the 48-scan production replay through runner.run_sequence
                with launch counts reset just before and read just after;
@@ -76,8 +79,25 @@ Phases, each printing one JSON line:
                kernel, the first 8 poses against a plain-version run, and
                B1 and B2 at this path's inputs against their plain
                versions (rows `*_husky`)
-Then the `kernels` summary line (launches summed over every path; the
-`_husky` rows carry the husky phase's), the
+12. batched_ndt, batched_features, batched_voxel_hash
+               4 robots of each path of phase 8 (`path_config`), robot b
+               on its own sequence of the path's world (`robot_sequences`:
+               the production tunnel at step 0.30 + 0.05b, seed b; NDT on
+               its world tunnel at its source's 0.35 m, seed b),
+               ROBOT_SCANS ticks of one batched step each through
+               runner.make_batched_replay with launch counts reset just
+               before and read just after; every
+               robot also through runner.make_scan_replay: ticks/s and
+               robot-scans/s over the last 16 ticks, p50 and max tick
+               latency beside the single replays' scan time, per-robot
+               ATE and difference from its single replay, the first 8
+               ticks against the phase-3 plain reference, launches per
+               tick by kernel; B3 must launch on every path, B4 on ndt and
+               voxel_hash and not on features, no single-member kernel
+               anywhere
+Then the `kernels` summary line (launches summed over every path, the
+batched paths' on the B3/B4 rows (B3 map on the voxel-hash operand on
+its own row); the `_husky` rows carry the husky phase's), the
 nvidia-smi line, and the final `{"ok": true, ...}` line. The full record also goes to
 chiprun_out/chip_smoke.json.
 """
@@ -117,6 +137,14 @@ PATHS = {
 }
 PATH_SCANS = 48
 VOXEL_HASH_MAP = "nn_visits_map_voxel_hash"   # the B2 map row on the voxel-hash operand
+BATCHED_VOXEL_HASH_MAP = "nn_visits_batched_map_voxel_hash"   # B3 map on the robots' voxel-hash operands
+# the batched paths (phase 12) and the kernels each must launch: B3 (scan
+# and map) always, B4 except on features (kNN normals)
+BATCHED_PATHS = {
+    "ndt": BATCHED_PATH,
+    "features": ("nn_visits_batched_scan", "nn_visits_batched_map"),
+    "voxel_hash": BATCHED_PATH,
+}
 # The live and slam phases: the circuit of tools/live_endurance.py and
 # tools/endurance.py (step 0.5 m, 2 laps, seed 0) cut from 2000 scans to
 # CIRCUIT_SCANS; the pose-graph backend at tools/endurance.py:385-392's
@@ -203,6 +231,28 @@ def path_sequence(dataset, name, seq, num_scans=PATH_SCANS):
 
 
 PATH_SEQUENCE_NAMES = {"ndt": 'make_world_sequence("tunnel", azimuth_steps=900)'}
+
+
+def robot_sequences(dataset, name, num_scans=ROBOT_SCANS, robots=ROBOTS):
+    """Robot b's sequence on a path, on the path's world (`path_sequence`):
+    phase 7's scheme, step 0.30 + 0.05b and seed b, on the production
+    tunnel; NDT on its world tunnel at 900 azimuth steps, every robot at
+    its source's step (EVAL_NDT_r05.json: 21 m in 60 scans, 0.35 m) with
+    seed b. NDT at 1.0 m voxels drifts past the 0.05 m ATE gate at 0.45 m
+    a scan (0.067 m on the card; the JAX package's NDT drifts as far on
+    that trajectory, PERF.md), outside the regime its source measured."""
+    if name == "ndt":
+        return [dataset.make_world_sequence("tunnel", num_scans=num_scans, azimuth_steps=900, step=0.35, seed=b)
+                for b in range(robots)]
+    return [dataset.make_tunnel_sequence(num_scans=num_scans, azimuth_steps=1800, step=round(0.30 + 0.05 * b, 2),
+                                         seed=b) for b in range(robots)]
+
+
+ROBOT_SEQUENCE_NAMES = {
+    "ndt": 'make_world_sequence("tunnel", azimuth_steps=900, step=0.35, seed=b)',
+    "features": "make_tunnel_sequence(azimuth_steps=1800, step=0.30+0.05b, seed=b)",
+    "voxel_hash": "make_tunnel_sequence(azimuth_steps=1800, step=0.30+0.05b, seed=b)",
+}
 
 
 def serving_config(cfg):
@@ -1003,6 +1053,78 @@ def run_path(torch, np, runner, tnn, tmom, cfg, seq, ref_poses, name, dev):
     }
 
 
+def run_batched_path(torch, np, runner, pipeline, tnn, tmom, cfg, seqs, ref_poses, name, dev):
+    """One path's batched replay of len(seqs) robots through the kernels,
+    launch counts of this run only; each robot also alone through
+    make_scan_replay (timed); the first ticks against the plain reference
+    (`ref_poses` (REF_SCANS, B, 4, 4))."""
+    from locus_tpu_torch.metrics import RateReport, ate_rmse
+
+    robots, ticks = len(seqs), len(seqs[0])
+    packed = [runner.pack_sequence(s, cfg, device=dev) for s in seqs]
+    init = np.stack([s.gt_poses[0] for s in seqs])
+    single_replay = runner.make_scan_replay(cfg)
+    single_poses, single_ms = [], []
+    for s, p in zip(seqs, packed):
+        timing = RateReport()
+        st = pipeline.init_state_from_config(cfg, torch.as_tensor(s.gt_poses[0], dtype=torch.float32), device=dev)
+        single_poses.append(single_replay(st, p, report=timing)[1][0].cpu().numpy().astype(np.float64))
+        single_ms.append(float(np.median(timing.durations[-TICK_WINDOW:]) * 1e3))
+    stacked = runner.stack_packed(packed)
+    states = pipeline.init_states(cfg, init, device=dev)
+    report, outs = RateReport(), []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(tnn, tmom)
+    t0 = time.perf_counter()
+    states, (poses, _, sizes) = runner.make_batched_replay(cfg)(states, stacked, report=report, outputs=outs)
+    wall = time.perf_counter() - t0
+    launches = read_launches(tnn, tmom)
+    poses = poses.cpu().numpy().astype(np.float64)           # (T, B, 4, 4)
+    dur = np.asarray(report.durations)
+    window = dur[-TICK_WINDOW:]
+    rate = window.size / float(window.sum())
+    ates = [ate_rmse(poses[:, b, :3, 3], s.gt_poses[:ticks, :3, 3], align=False) for b, s in enumerate(seqs)]
+    vs_single = [float(np.abs(poses[:, b, :3, 3] - single_poses[b][:, :3, 3]).max()) for b in range(robots)]
+    ab = np.abs(poses[:REF_SCANS, :, :3, 3] - ref_poses[..., :3, 3]).max(axis=(1, 2))
+    loc_its = np.stack([o.loc_iterations.cpu().numpy() for o in outs])        # (T, B)
+    return {
+        "phase": f"batched_{name}", "robots": robots, "ticks": int(dur.size),
+        "sequence": ROBOT_SEQUENCE_NAMES[name],
+        "ticks_per_s_last16": rate, "robot_scans_per_s_last16": robots * rate,
+        "ms_per_tick_p50_last16": float(np.median(window) * 1e3), "ms_per_tick_max_last16": float(window.max() * 1e3),
+        "single_ms_per_scan_p50_last16": single_ms,
+        "tick_over_single_scan": float(np.median(window) * 1e3 / np.median(single_ms)),
+        "first_tick_s": float(dur[0]), "wall_s": wall,
+        "ate_m": ates, "max_translation_vs_single_m": vs_single,
+        "ab_ticks": REF_SCANS, "ab_max_translation_m": float(ab.max()), "ab_per_tick_m": ab.tolist(),
+        "launches": launches, "launches_per_tick": {k: v / dur.size for k, v in launches.items()},
+        "loc_iterations_per_tick_max": loc_its.max(axis=1).tolist(),
+        "loc_iterations_sum_over_robots": int(loc_its.sum()),
+        "keyframes": [int(k) for k in states.stats.keyframe_count.tolist()],
+        "final_map_sizes": sizes[-1].tolist(), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+
+
+def batched_path_problems(record, expected):
+    """What fails a batched path phase."""
+    name, launches, problems = record["phase"], record["launches"], []
+    if min(launches[k] for k in expected) <= 0:
+        problems.append(f"{name}: the batched path did not launch {expected}: {launches}")
+    if "moments_visits_batched" not in expected and launches["moments_visits_batched"]:
+        problems.append(f"{name}: kernel B4 launched on the kNN-normals path: {launches}")
+    if any(launches[k] for k in SINGLE_PATH):
+        problems.append(f"{name}: a single-member kernel launched on a batched path: {launches}")
+    ates = record["ate_m"]
+    if not all(math.isfinite(a) for a in ates) or max(ates) > ATE_LIMIT_M:
+        problems.append(f"{name}: ATE {ates} m exceeds {ATE_LIMIT_M} m")
+    if max(record["max_translation_vs_single_m"]) > BATCHED_LIMIT_M:
+        problems.append(f"{name}: robots differ from their single replays by {record['max_translation_vs_single_m']} m")
+    if record["ab_max_translation_m"] > AB_LIMIT_M:
+        problems.append(f"{name}: kernels and plain versions differ by {record['ab_max_translation_m']} m")
+    return problems
+
+
 def main() -> int:
     try:
         import torch
@@ -1091,9 +1213,22 @@ def main() -> int:
                     path_seqs[name], path_config(cfg, name), max_scans=REF_SCANS, return_state=True, device=dev
                 )
             path_s[name] = time.perf_counter() - t0
+        batched_seqs, batched_refs, batched_path_s = {}, {}, {}
+        for name in BATCHED_PATHS:
+            t0 = time.perf_counter()
+            batched_seqs[name] = robot_sequences(dataset, name)
+            pcfg = path_config(cfg, name)
+            ticks = runner.stack_packed([runner.pack_sequence(s, pcfg, max_scans=REF_SCANS, device=dev)
+                                         for s in batched_seqs[name]])
+            init = np.stack([s.gt_poses[0] for s in batched_seqs[name]])
+            batched_refs[name] = runner.make_batched_replay(pcfg, use_pallas=False)(
+                pipeline.init_states(pcfg, init, device=dev), ticks
+            )
+            batched_path_s[name] = time.perf_counter() - t0
         record["reference"] = {
             "phase": "reference", "scans": REF_SCANS, "seconds": single_s, "data_seconds": data_s,
             "batched_ticks": REF_SCANS, "batched_seconds": batched_s, "path_seconds": path_s,
+            "batched_path_seconds": batched_path_s,
         }
         emit(record["reference"])
 
@@ -1110,14 +1245,21 @@ def main() -> int:
         _, bt, radius, args, query, target = nn_cases(torch, tnn, vh_cfg, pcv, vh_state, "")[1]
         ok_vh, res_vh = check_nn(torch, tnn, build, VOXEL_HASH_MAP, bt, radius, args, query, target)
         results.append(res_vh)
+        # B3 map on the 4 robots' voxel-hash operands, every chunk visited
+        bvh_state = batched_refs["voxel_hash"][0]
+        pcbv = scan_for_checks(torch, cfg, batched_seqs["voxel_hash"], REF_SCANS, bvh_state.voxel_leaf, dev)
+        _, bt, radius, args, query, target = nn_cases(torch, tnn, vh_cfg, pcbv, bvh_state, "_batched")[1]
+        ok_bvh, res_bvh = check_nn(torch, tnn, build, BATCHED_VOXEL_HASH_MAP, bt, radius, args, query, target)
+        results.append(res_bvh)
         record["kernels"] = {
             "phase": "kernels", "checks": results, "map_points": int(ref_state.map.cloud.mask.sum()),
             "voxel_hash_map_points": int(vh_state.map.cloud.mask.sum()),
+            "batched_voxel_hash_map_points": bvh_state.map.cloud.mask.sum(-1).tolist(),
             "batched_map_points": ref_states.map.cloud.mask.sum(-1).tolist(),
             "batched_leaves": ref_states.voxel_leaf.tolist(),
         }
         emit(record["kernels"])
-        if not (ok_single and ok_batched and ok_vh):
+        if not (ok_single and ok_batched and ok_vh and ok_bvh):
             raise RuntimeError("a kernel disagrees with its plain version")
 
         # 5. pipeline through the kernels, launch counts of this run only
@@ -1253,6 +1395,19 @@ def main() -> int:
             problems.append("husky: a kernel disagrees with its plain version at the husky path's inputs")
         if problems:
             raise RuntimeError("; ".join(problems))
+
+        # 12. the batched paths through the kernels; every path runs, then
+        # any path's failure fails the script
+        problems = []
+        for name, expected in BATCHED_PATHS.items():
+            ref_poses_b = batched_refs[name][1][0].cpu().numpy().astype(np.float64)
+            rec = run_batched_path(torch, np, runner, pipeline, tnn, tmom, path_config(cfg, name),
+                                   batched_seqs[name], ref_poses_b, name, dev)
+            record[rec["phase"]] = rec
+            emit(rec)
+            problems += batched_path_problems(rec, expected)
+        if problems:
+            raise RuntimeError("; ".join(problems))
     except Exception:
         traceback.print_exc()
         emit({"phase": "failed", "completed": list(record)})
@@ -1260,13 +1415,17 @@ def main() -> int:
 
     # B1/B2 summed over the single paths, live serving and the SLAM replay
     # (the ring-map B2 rows over the paths with a ring map, the voxel-hash
-    # row over its own), B3/B4 from
-    # the batched replay; B5/B6 and B3 at B = 16 lie on no path
+    # row over its own); B5/B6 and B3 at B = 16 lie on no path
     single = ("pipeline",) + tuple(PATHS) + ("live", "slam")
     counts = {k: sum(record[p]["launches"][k] for p in single) for k in SINGLE_PATH}
     counts["nn_visits_map"] -= record["voxel_hash"]["launches"]["nn_visits_map"]
     counts[VOXEL_HASH_MAP] = record["voxel_hash"]["launches"]["nn_visits_map"]
-    counts |= {k: record["batched"]["launches"][k] for k in BATCHED_PATH}
+    # B3/B4 summed over the batched replay and the batched paths (the B3
+    # map rows split as the B2 ones: ring maps, and the voxel-hash operand)
+    batched = ("batched",) + tuple(f"batched_{p}" for p in BATCHED_PATHS)
+    counts |= {k: sum(record[p]["launches"][k] for p in batched) for k in BATCHED_PATH}
+    counts["nn_visits_batched_map"] -= record["batched_voxel_hash"]["launches"]["nn_visits_batched_map"]
+    counts[BATCHED_VOXEL_HASH_MAP] = record["batched_voxel_hash"]["launches"]["nn_visits_batched_map"]
     # the husky path's launches on its own rows (B1, B2 scan and map)
     husky = record["husky"]["launches"]
     counts |= {f"moments_visits{HUSKY_SUFFIX}": husky["moments_visits"],

@@ -26,35 +26,53 @@ def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.take_along_dim(x, idx[..., None], dim=-2)
 
 
+def _flat_rows(idx: torch.Tensor, size: int) -> torch.Tensor:
+    """Rows `idx` (..., K) of per-member `size`-row arrays as rows of the
+    members' arrays laid end to end: member b's row r becomes b*size + r.
+    Rows outside [0, size) go to the one row past the end, B*size."""
+    lead = idx.shape[:-1]
+    total = lead.numel() * size
+    base = torch.arange(0, total, size, device=idx.device).reshape(lead + (1,))
+    return torch.where((idx >= 0) & (idx < size), idx.to(torch.int64) + base, total)
+
+
 def last_writes(idx: torch.Tensor, size: int) -> torch.Tensor:
-    """(K,) bool: which of K writes to rows `idx` of a `size`-row array are
-    the last write to their row. XLA's scatter on the CPU applies its
-    updates in order, so the last write wins; CUDA's `index_put_` picks an
-    arbitrary one. The winner here is the largest write position (an
-    integer max, the same on every device). Writes outside [0, size) are
-    dropped (False)."""
-    pos = torch.arange(idx.shape[0], device=idx.device)
-    safe = torch.where((idx >= 0) & (idx < size), idx.to(torch.int64), size)
-    last = torch.full((size + 1,), -1, dtype=torch.int64, device=idx.device)
-    last.scatter_reduce_(0, safe, pos, "amax")
-    return (safe < size) & (torch.gather(last, 0, safe) == pos)
+    """(..., K) bool: which of K writes to rows `idx` of a `size`-row array
+    are the last write to their row, per batch member. XLA's scatter on the
+    CPU applies its updates in order, so the last write wins; CUDA's
+    `index_put_` picks an arbitrary one. The winner here is the largest
+    write position (an integer max, the same on every device). Writes
+    outside [0, size) are dropped (False). Members never share a row: the
+    rows are flattened with a member offset."""
+    flat = _flat_rows(idx, size).reshape(-1)
+    total = idx.shape[:-1].numel() * size
+    pos = torch.arange(flat.shape[0], device=idx.device)
+    last = torch.full((total + 1,), -1, dtype=torch.int64, device=idx.device)
+    last.scatter_reduce_(0, flat, pos, "amax")
+    return ((flat < total) & (torch.gather(last, 0, flat) == pos)).reshape(idx.shape)
 
 
 def put_rows(dst: torch.Tensor, rows: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """`dst` with rows `rows` (K,) set to `src` (K, ...) or a scalar, where
-    no row in [0, len(dst)) repeats; rows equal to len(dst) are dropped."""
-    n = dst.shape[0]
-    out = torch.cat([dst, dst.new_zeros((1,) + dst.shape[1:])])
-    out.index_copy_(0, rows, src.to(dst.dtype).expand((rows.shape[0],) + dst.shape[1:]))
-    return out[:n]   # the scratch row n took the dropped writes
+    """`dst` (..., n, ...) with rows `rows` (..., K) set to `src` (..., K,
+    ...) or a scalar, per batch member, where no row in [0, n) repeats
+    within a member; rows equal to n are dropped."""
+    lead = rows.shape[:-1]
+    n = dst.shape[len(lead)]
+    tail = dst.shape[len(lead) + 1:]
+    flat_dst = dst.reshape((-1,) + tail)
+    out = torch.cat([flat_dst, flat_dst.new_zeros((1,) + tail)])
+    vals = src.to(dst.dtype).expand(rows.shape + tail).reshape((-1,) + tail)
+    out.index_copy_(0, _flat_rows(rows, n).reshape(-1), vals)
+    return out[:-1].reshape(dst.shape)   # the scratch row took the dropped writes
 
 
 def scatter_rows(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """`dst` with rows `idx` (K,) set to `src` (K, ...): JAX's
-    `dst.at[idx].set(src, mode="drop")` on the CPU. Rows outside the array
-    are dropped; where several writes hit one row the last one wins
-    (`last_writes`), so the result is the same on the CPU and the card."""
-    n = dst.shape[0]
+    """`dst` with rows `idx` (..., K) set to `src` (..., K, ...), per batch
+    member: JAX's `dst.at[idx].set(src, mode="drop")` on the CPU (under
+    vmap, batched). Rows outside the array are dropped; where several
+    writes hit one row the last one wins (`last_writes`), so the result is
+    the same on the CPU and the card."""
+    n = dst.shape[idx.dim() - 1]
     return put_rows(dst, torch.where(last_writes(idx, n), idx.to(torch.int64), n), src)
 
 
@@ -174,8 +192,10 @@ class PointCloud(NamedTuple):
 
 
 def concatenate(clouds, capacity: Optional[int] = None) -> PointCloud:
-    """Concatenate clouds along the point axis (padding budget = sum)."""
-    out = PointCloud(*(torch.cat(parts, dim=0) for parts in zip(*clouds)))
+    """Concatenate clouds along the point axis (padding budget = sum), per
+    batch member."""
+    point_dim = clouds[0].mask.dim() - 1
+    out = PointCloud(*(torch.cat(parts, dim=point_dim) for parts in zip(*clouds)))
     if capacity is not None and capacity != out.capacity:
         out = out.compact(capacity)
     return out

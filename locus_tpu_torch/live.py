@@ -268,8 +268,11 @@ class MultiRobotSession:
     full LocusState (pose, map, buffers); one batched step advances all of
     them per tick, its kernels launched once for all robots.
 
-    All robots share one config (mixed configs need separate sessions).
-    `device=None` means the CUDA device."""
+    All robots share one config (mixed configs need separate sessions),
+    any single-card configuration of the step; each robot gets the poses a
+    single replay of its own scans gives, bit for bit.
+    There is no loop-closure push-back here (JAX's MultiRobotSession has
+    none). `device=None` means the CUDA device."""
 
     cfg: LocusConfig
     num_robots: int = 2

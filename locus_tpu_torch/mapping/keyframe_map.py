@@ -209,7 +209,10 @@ def reanchor(state: MapState, corrections: torch.Tensor, cfg: MapperConfig) -> M
     trajectory. The cached operand and chunk boxes are rebuilt from the
     moved points: boxes left stale would prune true neighbours silently."""
     if state.cloud.mask.dim() != 1:
-        raise NotImplementedError("reanchor of a batched map: ROADMAP A15b")
+        raise NotImplementedError(
+            "reanchor of a batched map: no batched entry point re-anchors (MultiRobotSession has no "
+            "loop-closure push-back); re-anchor one robot's map (pipeline.member) instead"
+        )
     cloud, _ = moved_by_keyframe(state, corrections)
     nn_aug = build_nn_target(cloud.xyz, m_pad=state.nn_aug.shape[0])
     c_min, c_max = chunk_boxes(cloud.xyz, cloud.mask, nn_aug.shape[0])

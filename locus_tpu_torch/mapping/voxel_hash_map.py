@@ -20,7 +20,11 @@ scatter applies them in order (the last wins); here the winner is picked
 explicitly (`core.cloud.last_writes`), so the card's store equals the
 CPU's and JAX's.
 
-Unsharded, single path (the batched step raises, ROADMAP A15b).
+Unsharded. Every function also takes a state with one leading batch
+dimension (the batched replay): each member has its own slots, keys and
+`enabled` flag, the duplicate writes are resolved within each member
+(`last_writes` flattens the slots with a member offset), and the ANN runs
+kernel B3 once for all members, visiting every chunk of every member.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from locus_tpu_torch.config import MapperConfig
-from locus_tpu_torch.core.cloud import PointCloud, last_writes, put_rows
+from locus_tpu_torch.core.cloud import PointCloud, last_writes, put_rows, take_rows
 from locus_tpu_torch.mapping import keyframe_map as _ring
 from locus_tpu_torch.ops.dispatch import resolve_device
 from locus_tpu_torch.ops.kernels.nn import build_nn_target, chunk_boxes, update_chunk_boxes, update_nn_target
@@ -88,7 +92,7 @@ def _slot_of(ijk: torch.Tensor, capacity: int) -> torch.Tensor:
     capacity). Computed in int64 with the wraparound made explicit, so no
     signed overflow is left to the device."""
     c = ijk.to(torch.int64)
-    h = _wrap32(c[:, 0] * _P1) ^ _wrap32(c[:, 1] * _P2) ^ _wrap32(c[:, 2] * _P3)
+    h = _wrap32(c[..., 0] * _P1) ^ _wrap32(c[..., 1] * _P2) ^ _wrap32(c[..., 2] * _P3)
     a = torch.abs(h)
     a = torch.where(a == (1 << 31), _INT32_MIN, a)     # int32 abs(INT32_MIN) == INT32_MIN
     return torch.remainder(a, capacity)
@@ -108,15 +112,13 @@ def insert_keyframe(
     (dedup is intrinsic). `enabled` (bool tensor) makes the call a masked
     no-op when False."""
     del nearest_d2
-    if keyframe.mask.dim() != 1:
-        raise NotImplementedError("batched voxel-hash map: ROADMAP A15b")
     cap = state.cloud.capacity
     ijk = _voxel_ijk(keyframe.xyz, cfg.map_voxel_leaf)
     slot = _slot_of(ijk, cap)
-    same_voxel = state.occupied[slot] & torch.all(state.keys[slot] == ijk, dim=1)
+    same_voxel = take_rows(state.occupied, slot) & torch.all(take_rows(state.keys, slot) == ijk, dim=-1)
     write = keyframe.mask & ~same_voxel
     if enabled is not None:
-        write = write & enabled
+        write = write & enabled[..., None]
     idx = torch.where(write, slot, cap)          # cap: dropped
     # the last write to a slot wins (XLA's in-order CPU scatter); the
     # others are dropped, so every scatter below has unique rows
@@ -145,7 +147,7 @@ def insert_keyframe(
         nn_aug=update_nn_target(state.nn_aug, rows, keyframe.xyz, win),
         chunk_min=c_min,
         chunk_max=c_max,
-        kf_index=put(state.kf_index, state.num_keyframes),
+        kf_index=put(state.kf_index, state.num_keyframes[..., None]),
     )
 
 

@@ -23,7 +23,9 @@ from typing import NamedTuple
 
 import torch
 
-from locus_tpu_torch.core.cloud import PAD_COORD, PointCloud
+from locus_tpu_torch.core.cloud import PAD_COORD, PointCloud, take_rows
+from locus_tpu_torch.geometry import se3
+from locus_tpu_torch.utils.linalg import sum_last
 
 RINGS = 16
 ELEV_MIN_DEG = -15.0
@@ -38,6 +40,8 @@ LESS_FLAT = 4
 
 
 class FeatureGrid(NamedTuple):
+    """One grid, or batched one per member (a leading B on every field)."""
+
     xyz: torch.Tensor        # (RINGS, W, 3)
     valid: torch.Tensor      # (RINGS, W)
     curvature: torch.Tensor  # (RINGS, W)
@@ -49,9 +53,11 @@ def to_range_image(cloud: PointCloud, width: int = 1024, return_index: bool = Fa
     """Bin the points into a (RINGS, width) grid by elevation ring and
     azimuth (arrangePCLInScanLines); a cell keeps its nearest point, and of
     equal ranges the lowest point index. With return_index, also each
-    cell's source index (-1 empty)."""
+    cell's source index (-1 empty). A batched cloud gets one grid per
+    member: each member's cells are offset into a grid of its own."""
     dev = cloud.xyz.device
-    x, y, z = cloud.xyz[:, 0], cloud.xyz[:, 1], cloud.xyz[:, 2]
+    lead = cloud.mask.shape[:-1]
+    x, y, z = cloud.xyz[..., 0], cloud.xyz[..., 1], cloud.xyz[..., 2]
     rho = torch.sqrt(x * x + y * y)
     elev_deg = torch.rad2deg(torch.atan2(z, rho))
     ring = torch.round((elev_deg - ELEV_MIN_DEG) / ELEV_STEP_DEG).to(torch.int32)
@@ -64,28 +70,42 @@ def to_range_image(cloud: PointCloud, width: int = 1024, return_index: bool = Fa
     rng = torch.sqrt(x * x + y * y + z * z)
     cells = RINGS * width
     flat_idx = torch.where(ok, ring * width + col, cells).to(torch.int64)
+    # member b's cells (and its scratch cell `cells`) at b*(cells+1) + ...
+    members = lead.numel()
+    base = (torch.arange(members, device=dev) * (cells + 1)).reshape(lead + (1,))
+    slots = members * (cells + 1)
 
-    range_grid = torch.full((cells + 1,), float("inf"), device=dev)
-    range_grid.scatter_reduce_(0, flat_idx, torch.where(ok, rng, float("inf")), "amin")
-    winner = ok & (rng <= range_grid[flat_idx])
+    def flat(i):
+        return (i + base).reshape(-1)
+
+    range_grid = torch.full((slots,), float("inf"), device=dev)
+    range_grid.scatter_reduce_(0, flat(flat_idx), torch.where(ok, rng, float("inf")).reshape(-1), "amin")
+    winner = ok & (rng <= range_grid[flat(flat_idx)].reshape(ok.shape))
     # equal ranges in one cell: the lowest lane wins
     n = cloud.capacity
-    lane = torch.arange(n, dtype=torch.int32, device=dev)
-    tie_grid = torch.full((cells + 1,), n, dtype=torch.int32, device=dev)
-    tie_grid.scatter_reduce_(0, torch.where(winner, flat_idx, cells), torch.where(winner, lane, n), "amin")
-    winner = winner & (lane == tie_grid[flat_idx])
+    lane = torch.arange(n, dtype=torch.int32, device=dev).expand(ok.shape)
+    tie_grid = torch.full((slots,), n, dtype=torch.int32, device=dev)
+    tie_grid.scatter_reduce_(
+        0, flat(torch.where(winner, flat_idx, cells)), torch.where(winner, lane, n).reshape(-1), "amin"
+    )
+    winner = winner & (lane == tie_grid[flat(flat_idx)].reshape(ok.shape))
 
-    dst = torch.where(winner, flat_idx, cells)     # one writer per cell
-    grid = torch.full((cells + 1, 3), PAD_COORD, device=dev)
-    grid[dst] = torch.where(winner[:, None], cloud.xyz, PAD_COORD)
-    valid = torch.zeros((cells + 1,), dtype=torch.bool, device=dev)
-    valid[dst] = winner
-    out = (grid[:-1].reshape(RINGS, width, 3), valid[:-1].reshape(RINGS, width))
+    dst = flat(torch.where(winner, flat_idx, cells))     # one writer per cell
+    grid = torch.full((slots, 3), PAD_COORD, device=dev)
+    grid[dst] = torch.where(winner[..., None], cloud.xyz, PAD_COORD).reshape(-1, 3)
+    valid = torch.zeros((slots,), dtype=torch.bool, device=dev)
+    valid[dst] = winner.reshape(-1)
+
+    def image(a):
+        # the scratch cell `cells` took every non-winner: cut off
+        a = a.reshape(lead + (cells + 1,) + a.shape[1:]).narrow(len(lead), 0, cells)
+        return a.reshape(lead + (RINGS, width) + a.shape[len(lead) + 1:])
+
+    out = (image(grid), image(valid))
     if return_index:
-        src = torch.full((cells + 1,), -1, dtype=torch.int32, device=dev)
-        src[dst] = lane
-        out = out + (src[:-1].reshape(RINGS, width),)
-    # the scratch cell `cells` took every non-winner: cut off above
+        src = torch.full((slots,), -1, dtype=torch.int32, device=dev)
+        src[dst] = lane.reshape(-1)
+        out = out + (image(src),)
     return out
 
 
@@ -93,19 +113,18 @@ def _compact_rings(grid_xyz, valid, src_idx):
     """Stable per-ring compaction of the valid cells to the row prefix:
     the reference's scan lines are point sequences, and curvature, the
     picking gaps and the exclusions run over consecutive points."""
-    rings, W = valid.shape
-    dev = valid.device
-    pos = torch.cumsum(valid.to(torch.int64), dim=1) - 1
+    W = valid.shape[-1]
+    pos = torch.cumsum(valid.to(torch.int64), dim=-1) - 1
     tgt = torch.where(valid, pos, W)                      # W: the drop slot
-    rows = torch.arange(rings, device=dev)[:, None].expand(rings, W)
-    out_xyz = torch.full((rings, W + 1, 3), PAD_COORD, device=dev)
-    out_xyz[rows, tgt] = grid_xyz
-    out_valid = torch.zeros((rings, W + 1), dtype=torch.bool, device=dev)
-    out_valid[rows, tgt] = valid
-    out_src = torch.full((rings, W + 1), -1, dtype=torch.int32, device=dev)
-    out_src[rows, tgt] = src_idx
+    wide = valid.shape[:-1] + (W + 1,)
+    out_xyz = torch.full(wide + (3,), PAD_COORD, device=valid.device)
+    out_xyz.scatter_(-2, tgt[..., None].expand(grid_xyz.shape), grid_xyz)
+    out_valid = torch.zeros(wide, dtype=torch.bool, device=valid.device)
+    out_valid.scatter_(-1, tgt, valid)
+    out_src = torch.full(wide, -1, dtype=torch.int32, device=valid.device)
+    out_src.scatter_(-1, tgt, src_idx)
     # the drop slot W took every invalid cell: cut off
-    return out_xyz[:, :W], out_valid[:, :W], out_src[:, :W]
+    return out_xyz[..., :W, :], out_valid[..., :W], out_src[..., :W]
 
 
 def compute_curvature(grid_xyz: torch.Tensor, valid: torch.Tensor, half: int = 5):
@@ -116,9 +135,9 @@ def compute_curvature(grid_xyz: torch.Tensor, valid: torch.Tensor, half: int = 5
     for k in range(-half, half + 1):
         if k == 0:
             continue
-        total = total + (torch.roll(grid_xyz, -k, dims=1) - grid_xyz)
-        all_valid = all_valid & torch.roll(valid, -k, dims=1)
-    c = torch.sum(total * total, dim=-1)
+        total = total + (torch.roll(grid_xyz, -k, dims=-2) - grid_xyz)
+        all_valid = all_valid & torch.roll(valid, -k, dims=-1)
+    c = sum_last(total * total)
     return torch.where(all_valid, c, float("inf")), all_valid
 
 
@@ -129,32 +148,32 @@ def unreliable_mask(grid_xyz: torch.Tensor, valid: torch.Tensor, half: int = 5) 
     whose gaps to both neighbours exceed ~4x the expected tangential
     spacing is suppressed."""
     p = grid_xyz
-    nxt = torch.roll(p, -1, dims=1)
-    prv = torch.roll(p, 1, dims=1)
-    v_nxt = torch.roll(valid, -1, dims=1)
-    v_prv = torch.roll(valid, 1, dims=1)
+    nxt = torch.roll(p, -1, dims=-2)
+    prv = torch.roll(p, 1, dims=-2)
+    v_nxt = torch.roll(valid, -1, dims=-1)
+    v_prv = torch.roll(valid, 1, dims=-1)
 
-    diff_next = torch.sum((nxt - p) ** 2, dim=-1)
-    diff_prev = torch.sum((p - prv) ** 2, dim=-1)
-    depth = torch.linalg.norm(p, dim=-1)
-    depth_next = torch.linalg.norm(nxt, dim=-1)
+    diff_next = sum_last((nxt - p) ** 2)
+    diff_prev = sum_last((p - prv) ** 2)
+    depth = se3.norm(p)
+    depth_next = se3.norm(nxt)
     jump = valid & v_nxt & (diff_next > 0.1)
 
     ratio_fn = torch.where(depth > 1e-6, depth_next / torch.clamp(depth, min=1e-6), 0.0)
     ratio_nf = torch.where(depth_next > 1e-6, depth / torch.clamp(depth_next, min=1e-6), 0.0)
-    lat_far = torch.linalg.norm(p * ratio_fn[..., None] - nxt, dim=-1) / torch.clamp(depth_next, min=1e-6)
-    lat_near = torch.linalg.norm(nxt * ratio_nf[..., None] - p, dim=-1) / torch.clamp(depth, min=1e-6)
+    lat_far = se3.norm(p * ratio_fn[..., None] - nxt) / torch.clamp(depth_next, min=1e-6)
+    lat_near = se3.norm(nxt * ratio_nf[..., None] - p) / torch.clamp(depth, min=1e-6)
     trig_far = jump & (depth > depth_next) & (lat_far < 0.1)     # suppress i-half..i
     trig_near = jump & (depth <= depth_next) & (lat_near < 0.1)  # suppress i+1..i+half+1
 
     blocked = torch.zeros_like(valid)
     for d in range(0, half + 1):
-        blocked = blocked | torch.roll(trig_far, -d, dims=1)
+        blocked = blocked | torch.roll(trig_far, -d, dims=-1)
     for d in range(1, half + 2):
-        blocked = blocked | torch.roll(trig_near, d, dims=1)
+        blocked = blocked | torch.roll(trig_near, d, dims=-1)
 
-    dis = torch.sum(p * p, dim=-1)
-    ramp_k = (4.0 * (2.0 * math.pi / p.shape[1])) ** 2     # 2e-4 at the VLP-16's 1800 columns
+    dis = sum_last(p * p)
+    ramp_k = (4.0 * (2.0 * math.pi / p.shape[-2])) ** 2     # 2e-4 at the VLP-16's 1800 columns
     ramp = valid & v_nxt & v_prv & (diff_next > ramp_k * dis) & (diff_prev > ramp_k * dis)
     return blocked | ramp
 
@@ -167,28 +186,27 @@ def _greedy_pick(score, eligible, suppressed, gap, num_regions: int, region_w: i
     `half` ring neighbours on each side are suppressed, the wave stopping at
     the first gap. The first `promote_first` picks get `label_hi`, the rest
     `label_lo`. Regions pick simultaneously per round, as in the JAX
-    function."""
-    rings = score.shape[0]
+    function (and the members of a batch alongside them)."""
     W = num_regions * region_w
     dev = score.device
-    flat_score = score.reshape(rings, num_regions, region_w)
+    regions = score.shape[:-1] + (num_regions, region_w)
+    flat_score = score.reshape(regions)
     col_base = torch.arange(num_regions, device=dev) * region_w
-    row = torch.arange(rings, device=dev)[:, None].expand(rings, num_regions)
-    label = torch.zeros((rings, W), dtype=torch.int32, device=dev)
+    label = torch.zeros(score.shape[:-1] + (W,), dtype=torch.int32, device=dev)
     supp = suppressed
     for k in range(picks):
-        cand = (eligible & ~supp).reshape(rings, num_regions, region_w)
+        cand = (eligible & ~supp).reshape(regions)
         cand_score = torch.where(cand, flat_score, float("-inf"))
         best = torch.argmax(cand_score, dim=-1)
         best_ok = torch.gather(cand_score, -1, best[..., None])[..., 0] > float("-inf")
-        oh = torch.zeros((rings, W), dtype=torch.bool, device=dev)
-        oh[row, col_base[None, :] + best] = best_ok            # one column per region
+        oh = torch.zeros(label.shape, dtype=torch.bool, device=dev)
+        oh.scatter_(-1, col_base + best, best_ok)            # one column per region
         label = torch.where(oh, label_hi if k < promote_first else label_lo, label)
         supp = supp | oh
         run_r = run_l = oh
         for _ in range(half):
-            run_r = torch.roll(run_r, 1, dims=1) & ~gap
-            run_l = torch.roll(run_l, -1, dims=1) & ~torch.roll(gap, -1, dims=1)
+            run_r = torch.roll(run_r, 1, dims=-1) & ~gap
+            run_l = torch.roll(run_l, -1, dims=-1) & ~torch.roll(gap, -1, dims=-1)
             supp = supp | run_r | run_l
     return label, supp
 
@@ -204,21 +222,21 @@ def extract_features(
     suppression_half: int = 5,
 ) -> FeatureGrid:
     """Label the grid cells SHARP/LESS_SHARP/FLAT/LESS_FLAT with LOAM's
-    per-region budgets, exclusions and neighbour suppression."""
-    if cloud.mask.dim() != 1:
-        raise NotImplementedError("batched LOAM feature extraction: ROADMAP A15b")
+    per-region budgets, exclusions and neighbour suppression. A batched
+    cloud (B, N) gives a grid per member ((B, RINGS, width) fields), each
+    as its single call gives it: every loop has a fixed trip count."""
     grid_xyz, valid, src_idx = _compact_rings(*to_range_image(cloud, width, return_index=True))
     curv, cvalid = compute_curvature(grid_xyz, valid)
     blocked = unreliable_mask(grid_xyz, valid, half=suppression_half)
 
     usable = width - width % num_regions
     region_w = usable // num_regions
-    c = curv[:, :usable]
-    v = cvalid[:, :usable] & ~blocked[:, :usable]
+    c = curv[..., :usable]
+    v = cvalid[..., :usable] & ~blocked[..., :usable]
     gap_full = (
-        torch.sum((grid_xyz - torch.roll(grid_xyz, 1, dims=1)) ** 2, dim=-1) > 0.05
-    ) | ~valid | ~torch.roll(valid, 1, dims=1)
-    gap = gap_full[:, :usable]
+        sum_last((grid_xyz - torch.roll(grid_xyz, 1, dims=-2)) ** 2) > 0.05
+    ) | ~valid | ~torch.roll(valid, 1, dims=-1)
+    gap = gap_full[..., :usable]
 
     # corners: descending curvature above the threshold
     corner_elig = v & (c >= curvature_threshold) & torch.isfinite(c)
@@ -235,33 +253,34 @@ def extract_features(
         label_hi=FLAT, label_lo=FLAT, half=suppression_half,
     )
     label_u = torch.maximum(corner_label, flat_label)
-    below = cvalid[:, :usable] & (c < curvature_threshold) & (label_u == NONE)
+    below = cvalid[..., :usable] & (c < curvature_threshold) & (label_u == NONE)
     label_u = torch.where(below, LESS_FLAT, label_u)
 
-    label = torch.zeros((RINGS, width), dtype=torch.int32, device=grid_xyz.device)
-    label[:, :usable] = label_u
+    label = torch.zeros(valid.shape, dtype=torch.int32, device=grid_xyz.device)
+    label[..., :usable] = label_u
     return FeatureGrid(xyz=grid_xyz, valid=valid, curvature=curv, label=label, src_idx=src_idx)
 
 
 def feature_clouds(fg: FeatureGrid, edge_capacity: int = 512, planar_capacity: int = 2048,
                    source: PointCloud | None = None) -> tuple[PointCloud, PointCloud]:
     """Flatten the label grid into edge (SHARP/LESS_SHARP) and planar
-    (FLAT/LESS_FLAT) clouds; with `source`, each feature point carries its
-    source point's normal and intensity."""
-    xyz = fg.xyz.reshape(-1, 3)
-    lab = fg.label.reshape(-1)
-    valid = fg.valid.reshape(-1)
-    normals = intensity = None
+    (FLAT/LESS_FLAT) clouds, per batch member; with `source`, each feature
+    point carries its source point's normal and intensity."""
+    lead = fg.valid.shape[:-2]
+    xyz = fg.xyz.reshape(lead + (-1, 3))
+    lab = fg.label.reshape(lead + (-1,))
+    valid = fg.valid.reshape(lead + (-1,))
     if source is not None:
-        idx = torch.clamp(fg.src_idx.reshape(-1), 0, source.capacity - 1).to(torch.int64)
-        normals = source.normals[idx]
-        intensity = source.intensity[idx]
-    edge = PointCloud.from_points(
-        xyz, capacity=xyz.shape[0], mask=valid & ((lab == SHARP) | (lab == LESS_SHARP)),
-        normals=normals, intensity=intensity,
-    ).compact(edge_capacity)
-    planar = PointCloud.from_points(
-        xyz, capacity=xyz.shape[0], mask=valid & ((lab == FLAT) | (lab == LESS_FLAT)),
-        normals=normals, intensity=intensity,
-    ).compact(planar_capacity)
+        idx = torch.clamp(fg.src_idx.reshape(lead + (-1,)), 0, source.capacity - 1).to(torch.int64)
+        normals = take_rows(source.normals, idx)
+        intensity = take_rows(source.intensity, idx)
+    else:
+        normals = torch.zeros_like(xyz)
+        intensity = torch.zeros(valid.shape, dtype=torch.float32, device=xyz.device)
+
+    def cloud(mask, capacity):
+        return PointCloud(torch.where(mask[..., None], xyz, PAD_COORD), normals, intensity, mask).compact(capacity)
+
+    edge = cloud(valid & ((lab == SHARP) | (lab == LESS_SHARP)), edge_capacity)
+    planar = cloud(valid & ((lab == FLAT) | (lab == LESS_FLAT)), planar_capacity)
     return edge, planar

@@ -4,7 +4,8 @@ Filters are mask transforms: they never move points, they only invalidate
 lanes. The crop box (the body filter) and pcl::PassThrough, RandomSample,
 StatisticalOutlierRemoval and RadiusOutlierRemoval semantics
 (PointCloudFilter.cc:85-176). The JAX package runs them as XLA; they are
-plain PyTorch here.
+plain PyTorch here. Every filter takes a cloud with one leading batch
+dimension (the batched replay) and filters each member as alone.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 
 from locus_tpu_torch.core.cloud import PointCloud
 from locus_tpu_torch.ops import neighbors
+from locus_tpu_torch.utils.linalg import tree_sum
 
 
 def crop_box(cloud: PointCloud, box_min, box_max, negative: bool = True) -> PointCloud:
@@ -29,34 +31,41 @@ def passthrough(
 ) -> PointCloud:
     """Keep points whose `field` coordinate lies in [limit_min, limit_max]
     (negative=True inverts)."""
-    v = cloud.xyz[:, {"x": 0, "y": 1, "z": 2}[field]]
+    v = cloud.xyz[..., {"x": 0, "y": 1, "z": 2}[field]]
     inside = (v >= limit_min) & (v <= limit_max)
     return cloud.with_mask(~inside if negative else inside)
 
 
-def random_sample(cloud: PointCloud, generator: torch.Generator, decimate_percentage) -> PointCloud:
-    """Randomly discard `decimate_percentage` (a float or a 0-d tensor) of
-    the lanes. The uniform draw comes from `generator`, a CPU generator,
-    and is then moved to the cloud's device, so one seed gives one draw on
-    the CPU and the card alike. Torch's generator is not the JAX PRNG: the
-    draw is not the JAX package's, only its law is."""
-    u = torch.rand((cloud.capacity,), generator=generator, dtype=torch.float32).to(cloud.xyz.device)
-    return cloud.with_mask(u >= decimate_percentage)
+def random_sample(cloud: PointCloud, generator, decimate_percentage) -> PointCloud:
+    """Randomly discard `decimate_percentage` (a float, a 0-d tensor, or a
+    (B,) tensor for a batched cloud) of the lanes. The uniform draw comes
+    from `generator`, a CPU generator (batched: a list of them, one per
+    member, each drawing what its member's single call draws), and is then
+    moved to the cloud's device, so one seed gives one draw on the CPU and
+    the card alike. Torch's generator is not the JAX PRNG: the draw is not
+    the JAX package's, only its law is."""
+    cap = cloud.capacity
+    if isinstance(generator, torch.Generator):
+        u = torch.rand((cap,), generator=generator, dtype=torch.float32)
+    else:
+        u = torch.stack([torch.rand((cap,), generator=g, dtype=torch.float32) for g in generator])
+    pct = torch.as_tensor(decimate_percentage, dtype=torch.float32, device=cloud.xyz.device)
+    return cloud.with_mask(u.to(cloud.xyz.device) >= pct[..., None])
 
 
 def statistical_outlier(cloud: PointCloud, knn: int = 10, std_mult: float = 1.0) -> PointCloud:
     """Remove points whose mean distance to their `knn` nearest neighbours
     exceeds the valid points' mean of it plus `std_mult` standard
-    deviations."""
+    deviations. The sums run in an order fixed by the shapes (`tree_sum`),
+    so a batch member rounds as its single call does."""
     # +1: the point itself is its own 0-distance neighbour
     d2, _ = neighbors.knn(cloud.xyz, cloud.xyz, k=knn + 1)
-    mean_d = torch.mean(torch.sqrt(torch.clamp(d2[:, 1:], min=0.0)), dim=1)
-    w = cloud.mask.to(torch.float32)
-    denom = torch.clamp(torch.sum(w), min=1.0)
-    mu = torch.sum(torch.where(cloud.mask, mean_d, 0.0)) / denom
-    var = torch.sum(torch.where(cloud.mask, (mean_d - mu) ** 2, 0.0)) / denom
+    mean_d = tree_sum(torch.sqrt(torch.clamp(d2[..., 1:], min=0.0)), dim=-1) / float(d2.shape[-1] - 1)
+    denom = torch.clamp(cloud.count().to(torch.float32), min=1.0)
+    mu = tree_sum(torch.where(cloud.mask, mean_d, 0.0), dim=-1) / denom
+    var = tree_sum(torch.where(cloud.mask, (mean_d - mu[..., None]) ** 2, 0.0), dim=-1) / denom
     thresh = mu + std_mult * torch.sqrt(torch.clamp(var, min=0.0))
-    return cloud.with_mask(mean_d <= thresh)
+    return cloud.with_mask(mean_d <= thresh[..., None])
 
 
 def radius_outlier(cloud: PointCloud, radius: float = 0.15, min_neighbors: int = 3) -> PointCloud:

@@ -15,7 +15,9 @@ import math
 import torch
 
 from locus_tpu_torch.core.cloud import PointCloud
+from locus_tpu_torch.geometry import se3
 from locus_tpu_torch.ops import neighbors
+from locus_tpu_torch.utils.linalg import sum_last, tree_sum
 
 _EPS = 1e-12
 
@@ -86,7 +88,9 @@ def smallest_eigenvector_sym3x3(A: torch.Tensor):
 
 def eigh_sym3x3(A: torch.Tensor):
     """Full batched symmetric 3x3 eigendecomposition (analytic). Returns
-    (eigvals (..,3) ascending, eigvecs (..,3,3) columns matching)."""
+    (eigvals (..,3) ascending, eigvecs (..,3,3) columns matching). The
+    products and norms are written out elementwise, so every matrix rounds
+    alike whatever the batch around it."""
     _, lam_hi, lam_mid, lam_lo = _trig_eigvals(
         A[..., 0, 0], A[..., 0, 1], A[..., 0, 2],
         A[..., 1, 1], A[..., 1, 2], A[..., 2, 2],
@@ -96,23 +100,23 @@ def eigh_sym3x3(A: torch.Tensor):
     e_y = torch.tensor([0.0, 1.0, 0.0], dtype=A.dtype, device=A.device)
 
     def vec_for(l_other1, l_other2):
-        M = (A - l_other1[..., None, None] * eye) @ (A - l_other2[..., None, None] * eye)
-        norms = torch.linalg.norm(M, dim=-2)
+        M = se3.matmul(A - l_other1[..., None, None] * eye, A - l_other2[..., None, None] * eye)
+        norms = se3.norm(M.transpose(-1, -2))   # column norms
         col = torch.argmax(norms, dim=-1)
         v = torch.gather(M, -1, col[..., None, None].expand(col.shape + (3, 1)))[..., 0]
-        n = torch.linalg.norm(v, dim=-1, keepdim=True)
+        n = se3.norm(v)[..., None]
         return torch.where(n < 1e-10, e_x.expand(v.shape), v / torch.clamp(n, min=_EPS))
 
     v_lo = vec_for(lam_hi, lam_mid)
     v_hi = vec_for(lam_lo, lam_mid)
     # repeated eigenvalues: v_hi ~ v_lo, rebuild an orthogonal frame
-    parallel = torch.abs(torch.sum(v_hi * v_lo, dim=-1)) > 0.9
+    parallel = torch.abs(sum_last(v_hi * v_lo)) > 0.9
     alt = torch.where(torch.abs(v_lo[..., :1]) < 0.9, e_x.expand(v_lo.shape), e_y.expand(v_lo.shape))
     v_hi_fix = torch.linalg.cross(v_lo, alt, dim=-1)
-    v_hi_fix = v_hi_fix / torch.clamp(torch.linalg.norm(v_hi_fix, dim=-1, keepdim=True), min=_EPS)
+    v_hi_fix = v_hi_fix / torch.clamp(se3.norm(v_hi_fix)[..., None], min=_EPS)
     v_hi = torch.where(parallel[..., None], v_hi_fix, v_hi)
     v_mid = torch.linalg.cross(v_hi, v_lo, dim=-1)
-    v_mid = v_mid / torch.clamp(torch.linalg.norm(v_mid, dim=-1, keepdim=True), min=_EPS)
+    v_mid = v_mid / torch.clamp(se3.norm(v_mid)[..., None], min=_EPS)
     eigvals = torch.stack([lam_lo, lam_mid, lam_hi], dim=-1)
     eigvecs = torch.stack([v_lo, v_mid, v_hi], dim=-1)
     return eigvals, eigvecs
@@ -152,29 +156,35 @@ def estimate_normals_radius(
 
 
 def knn_covariance(xyz: torch.Tensor, mask: torch.Tensor, k: int) -> torch.Tensor:
-    """(N,3,3) covariance of each point's k nearest valid neighbours
+    """(...,N,3,3) covariance of each point's k nearest valid neighbours
     (itself included), the shared first half of the kNN normals and the
-    GICP `recompute`/`adaptive` covariances."""
+    GICP `recompute`/`adaptive` covariances. The sums over the neighbours
+    run pairwise (`tree_sum`) and the outer products elementwise, so a
+    batch member rounds as its single call does."""
     _, idx = neighbors.knn(xyz, xyz, k=k)
-    nbr = neighbors.gather_knn(xyz, idx)                 # (N, k, 3)
-    nbr_mask = mask[idx]
+    nbr = neighbors.gather_knn(xyz, idx)                 # (..., N, k, 3)
+    nbr_mask = neighbors.gather_knn(mask[..., None], idx)[..., 0]
     w = nbr_mask.to(torch.float32)
-    denom = torch.clamp(torch.sum(w, dim=1), min=1.0)
+    denom = torch.clamp(tree_sum(w, dim=-1), min=1.0)
     nbr_safe = torch.where(nbr_mask[..., None], nbr, 0.0)
-    mean = torch.sum(nbr_safe * w[..., None], dim=1) / denom[:, None]
-    centered = torch.where(nbr_mask[..., None], nbr - mean[:, None, :], 0.0)
-    return torch.einsum("nki,nkj->nij", centered, centered) / denom[:, None, None]
+    mean = tree_sum(nbr_safe * w[..., None], dim=-2) / denom[..., None]
+    c = torch.where(nbr_mask[..., None], nbr - mean[..., None, :], 0.0)
+    # the six products xx, xy, xz, yy, yz, zz of each neighbour, summed at once
+    prods = c[..., [0, 0, 0, 1, 1, 2]] * c[..., [0, 1, 2, 1, 2, 2]]
+    cov6 = tree_sum(prods, dim=-2) / denom[..., None]
+    return cov6[..., [0, 1, 2, 1, 3, 4, 2, 4, 5]].unflatten(-1, (3, 3))
 
 
 def estimate_normals(cloud: PointCloud, k: int = 20, viewpoint=(0.0, 0.0, 0.0)) -> PointCloud:
     """PCA normals from the k nearest neighbours, oriented toward
     `viewpoint` (PCL flips normals so n . (vp - p) >= 0). The eigenvector
-    is solved in float64, as in `estimate_normals_radius`."""
+    is solved in float64, as in `estimate_normals_radius`. A batched cloud
+    (B, N) gets each member's normals as its single call would."""
     cov = knn_covariance(cloud.xyz, cloud.mask, k)
     _, normal = smallest_eigenvector_sym3x3(cov.double())
     normal = normal.float()
     vp = torch.as_tensor(viewpoint, dtype=torch.float32, device=cloud.xyz.device)
-    flip = torch.sum(normal * (vp - cloud.xyz), dim=-1) < 0.0
-    normal = torch.where(flip[:, None], -normal, normal)
-    normal = torch.where(cloud.mask[:, None], normal, 0.0)
+    flip = sum_last(normal * (vp - cloud.xyz)) < 0.0
+    normal = torch.where(flip[..., None], -normal, normal)
+    normal = torch.where(cloud.mask[..., None], normal, 0.0)
     return PointCloud(cloud.xyz, normal, cloud.intensity, cloud.mask)

@@ -19,12 +19,15 @@ bootstrap. The sharded map raises NotImplementedError (ROADMAP A16).
 
 Batching: `step` also advances B robots at once, on states stacked by
 `stack_states` (every leaf with a leading B) and per-robot inputs; it has
-the meaning the JAX package gives a vmap of its `step`. Each robot
-keeps its own pose, map, fusion buffers and adaptive leaf. No Python loop
-runs over the robots: every op and kernel launch serves all of them (the
-normals run kernel B4, the 1-NN passes kernel B3). The batched step runs
-the default configuration (GICP, ring map, radius normals, no optional
-filter); the other options raise NotImplementedError (ROADMAP A15b).
+the meaning the JAX package gives a vmap of its `step`, in every
+single-card configuration above. Each robot keeps its own pose, map,
+fusion buffers, adaptive leaf and space-monitor flag, and each equals its
+own single run bit for bit: every reduction on the step's path sums in an
+order fixed by the shapes. No Python loop runs over the robots on the
+device: every op and kernel launch serves all of them (the radius
+normals run kernel B4, the 1-NN passes kernel B3). The host loops of the
+registrations run while any robot iterates; the random filter draws one
+CPU generator per robot, seeded from that robot's scan count.
 """
 from __future__ import annotations
 
@@ -92,28 +95,6 @@ def _check_supported(cfg: LocusConfig) -> None:
         raise NotImplementedError("sharded map: ROADMAP A16")
 
 
-def _check_batched_supported(cfg: LocusConfig) -> None:
-    """The batched step runs the default configuration only."""
-    f = cfg.filtering
-    stages = (cfg.odometry, cfg.localization.registration)
-    unported = [
-        (any(r.registration_method != "gicp" for r in stages), "NDT"),
-        (any(r.covariance_mode != "normals" or r.recompute_covariances for r in stages),
-         "GICP recompute/adaptive covariances"),
-        (f.extract_features, "LOAM feature extraction"),
-        (f.grid_filter or f.random_filter or f.outlier_filter or f.radius_filter,
-         "grid/random/outlier/radius filters"),
-        (f.normals_method != "radius", "kNN normals"),
-        (cfg.mapper.structure != "ring", "the voxel-hash map"),
-        (cfg.mapper.keyframe_at_map_resolution, "keyframe_at_map_resolution"),
-        (cfg.b_monitor_space, "the in-graph space monitor"),
-        (cfg.b_run_with_gt_point_cloud, "the ground-truth-map bootstrap"),
-    ]
-    for cond, what in unported:
-        if cond:
-            raise NotImplementedError(f"batched step with {what}: ROADMAP A15b")
-
-
 def init_state(cfg: LocusConfig, initial_pose: Optional[torch.Tensor] = None, device=None) -> LocusState:
     """Initial pipeline state on `device` (None: the CUDA device)."""
     dev = resolve_device(device)
@@ -177,7 +158,6 @@ def init_states(
     device): `init_state_from_config` per robot, stacked. `initial_poses`
     (B,4,4) or None (then `num_robots` of them at the configured pose)."""
     dev = resolve_device(device)
-    _check_batched_supported(cfg)
     if initial_poses is None:
         poses = [None] * num_robots
     else:
@@ -298,27 +278,30 @@ def preprocess(raw: PointCloud, leaf, cfg: LocusConfig, generator: Optional[torc
     return normals_op.estimate_normals(pc, k=f.normals_k)
 
 
-def _random_filter_generator(scan_count: torch.Tensor) -> torch.Generator:
+def _random_filter_generator(scan_count: torch.Tensor):
     """The random filter's generator, seeded from the scan count: one draw
     per scan index, whatever the layout (the JAX package folds the count
     into a PRNG key). A CPU generator, so the CPU and the card draw alike;
-    reading the count is one host read per scan."""
-    g = torch.Generator()
-    g.manual_seed(int(scan_count))
-    return g
+    reading the count is one host read per scan (per tick). Batched
+    ((B,) counts), a list of B generators, robot b's seeded from its own
+    count, so that it draws what its single run draws."""
+    if scan_count.dim() == 0:
+        return torch.Generator().manual_seed(int(scan_count))
+    return [torch.Generator().manual_seed(c) for c in scan_count.tolist()]
 
 
 def _space_monitor(scan: PointCloud, cfg: LocusConfig):
     """In-graph localizer space monitor: the xy cross-section of the
     scan's lateral bounding box near the sensor plane (|z| < 1 m) ->
     (open_space, the area or -1 when b_publish_xy_cross_section is off)."""
-    near_plane = scan.mask & (torch.abs(scan.xyz[:, 2]) < 1.0)
+    near_plane = scan.mask & (torch.abs(scan.xyz[..., 2]) < 1.0)
     big = 1e9
-    x = torch.where(near_plane, scan.xyz[:, 0], big)
-    y = torch.where(near_plane, scan.xyz[:, 1], big)
-    xs = torch.where(near_plane, scan.xyz[:, 0], -big)
-    ys = torch.where(near_plane, scan.xyz[:, 1], -big)
-    area = torch.clamp(torch.amax(xs) - torch.amin(x), min=0.0) * torch.clamp(torch.amax(ys) - torch.amin(y), min=0.0)
+    x = torch.where(near_plane, scan.xyz[..., 0], big)
+    y = torch.where(near_plane, scan.xyz[..., 1], big)
+    xs = torch.where(near_plane, scan.xyz[..., 0], -big)
+    ys = torch.where(near_plane, scan.xyz[..., 1], -big)
+    area = (torch.clamp(torch.amax(xs, dim=-1) - torch.amin(x, dim=-1), min=0.0)
+            * torch.clamp(torch.amax(ys, dim=-1) - torch.amin(y, dim=-1), min=0.0))
     shown = area if cfg.b_publish_xy_cross_section else torch.full_like(area, -1.0)
     return area > cfg.xy_cross_section_threshold, shown
 
@@ -333,8 +316,6 @@ def step(
     """Process one merged sweep (base frame); batched, one sweep per robot
     (`raw_scan` (B, N), `stamp` and `seq` (B,))."""
     _check_supported(cfg)
-    if raw_scan.mask.dim() > 1:
-        _check_batched_supported(cfg)
     flat = cfg.b_is_flat_ground_assumption
     dev = raw_scan.xyz.device
     stamp = torch.as_tensor(stamp, dtype=torch.float32, device=dev)
@@ -440,10 +421,11 @@ def step(
 
     # Map updates are masked passes (enabled=flag), as in the JAX package;
     # the keyframe at map resolution preprocesses the raw scan again, so
-    # it runs only when a keyframe is due (one host read; JAX: lax.cond).
+    # it runs only when a keyframe is due for some robot (one host read;
+    # JAX: lax.cond, under vmap a select), and inserts where one is due.
     if cfg.mapper.keyframe_at_map_resolution:
         new_map = state.map
-        if bool(want_keyframe):
+        if bool(want_keyframe.any()):
             with record_function("stage_kf"):
                 kf = raw_scan
                 if cfg.filtering.body_filter:
@@ -451,10 +433,9 @@ def step(
                 kf = voxel.voxel_downsample(
                     kf, cfg.mapper.map_voxel_leaf, capacity=cfg.mapper.keyframe_capacity, with_attributes=False
                 )
-                kf = normals_op.estimate_normals_radius(
-                    kf, radius=cfg.filtering.normals_radius_scale * cfg.mapper.map_voxel_leaf
-                )
-                new_map = mp_impl.insert_keyframe(state.map, kf.transform(pose), cfg.mapper)
+                radius = cfg.filtering.normals_radius_scale * cfg.mapper.map_voxel_leaf
+                kf = normals_op.estimate_normals_radius(kf, radius=torch.full_like(state.voxel_leaf, radius))
+                new_map = mp_impl.insert_keyframe(state.map, kf.transform(pose), cfg.mapper, enabled=want_keyframe)
     elif cfg.b_add_keyframes_enabled:
         # Novelty distances come from the ANN pass at the predicted pose,
         # off from the final pose by the measurement correction (~cm).

@@ -25,8 +25,10 @@ once for all members (B3; B2 on the single path). The Gauss-Newton sums
 are pairwise (`tree_sum`) and the small products written out
 (`se3.matmul`), so that a member rounds exactly as its single run does.
 
-The covariance modes other than "normals" and explicit covariances run
-on the single path only (the batched step raises for them, ROADMAP A15b).
+The "recompute" and "adaptive" modes and explicit covariances batch the
+same way: each member's k-NN covariances come from the batched
+`neighbors.knn`, and the rotated covariance sums are written out
+elementwise (`se3.matmul`).
 """
 from __future__ import annotations
 
@@ -68,11 +70,12 @@ def covariance_adaptive(xyz: torch.Tensor, mask: torch.Tensor, k: int, epsilon: 
     """Structure-adaptive covariance: the k-NN PCA eigenvalues normalised
     by the largest and floored at eps, so planes become disks (1,1,eps),
     edges sticks (1,eps,eps), and corners stay isotropic (the LOAM feature
-    clouds' mode)."""
+    clouds' mode). V diag(lam) V^T is summed elementwise (`se3.matmul`),
+    so a batch member rounds as its single call does."""
     eigvals, eigvecs = eigh_sym3x3(knn_covariance(xyz, mask, k))
-    lam_max = torch.clamp(eigvals[:, 2], min=1e-12)
-    lam_reg = torch.clamp(eigvals / lam_max[:, None], epsilon, 1.0)
-    return torch.einsum("nik,nk,njk->nij", eigvecs, lam_reg, eigvecs)
+    lam_max = torch.clamp(eigvals[..., 2], min=1e-12)
+    lam_reg = torch.clamp(eigvals / lam_max[..., None], epsilon, 1.0)
+    return se3.matmul(eigvecs * lam_reg[..., None, :], eigvecs.transpose(-1, -2))
 
 
 def covariance_from_neighborhood(xyz: torch.Tensor, mask: torch.Tensor, k: int, epsilon: float) -> torch.Tensor:
@@ -205,6 +208,12 @@ def _scaled_delta(T_prev: torch.Tensor, T_new: torch.Tensor, cfg: RegistrationCo
     return torch.amax(diff * scale, dim=(-2, -1))
 
 
+def select(active: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """Per batch member: `new` where the member is still iterating
+    (`active`, one flag per member), else its kept `old`."""
+    return torch.where(active.reshape(active.shape + (1,) * (new.dim() - active.dim())), new, old)
+
+
 def gicp_register(
     source: PointCloud,
     target: PointCloud,
@@ -232,10 +241,6 @@ def gicp_register(
         return covariance_from_normals(cloud.normals, cfg.gicp_epsilon)
 
     if not disk_path:
-        if source.mask.dim() != 1:
-            raise NotImplementedError(
-                f"batched GICP with covariance mode {mode!r} or explicit covariances: ROADMAP A15b"
-            )
         source_cov = make_cov(source) if source_cov is None else source_cov
         target_cov = make_cov(target) if target_cov is None else target_cov
     dev = source.xyz.device
@@ -257,10 +262,6 @@ def gicp_register(
             p, t_aug, target.xyz, c_min, c_max, float(cfg.corr_dist), bt=SCAN_BT
         )
         return torch.where(torch.isfinite(d2), d2, 1e12), j
-
-    def sel(active, new, old):
-        """Per member: `new` where still iterating, else the kept `old`."""
-        return torch.where(active.reshape(active.shape + (1,) * (new.dim() - active.dim())), new, old)
 
     n_src = source.capacity
     T = se3.identity(dev).expand(lead + (4, 4))
@@ -286,8 +287,9 @@ def gicp_register(
         else:
             # as in the JAX function: the source's own covariances (not
             # pre-warped by the guess), rotated by the iterated transform
-            R = se3.rotation(T)
-            A = _sym3_from_mats(target_cov[j] + R @ source_cov @ R.transpose(-1, -2))
+            R = se3.rotation(T)[..., None, :, :]
+            rotated = se3.matmul(se3.matmul(R, source_cov), R.transpose(-1, -2))
+            A = _sym3_from_mats(take_rows(target_cov.flatten(-2), j).unflatten(-1, (3, 3)) + rotated)
         M = _inv_sym3(A)
         T_new = T
         for _ in range(cfg.inner_iterations):
@@ -297,12 +299,12 @@ def gicp_register(
             T_new = se3.compose(se3.se3_exp(dx), T_new)
         T_new = se3.make_transform(se3.orthonormalize(se3.rotation(T_new)), se3.translation(T_new))
         wsum = tree_sum(w, dim=-1)
-        delta = sel(active, _scaled_delta(T, T_new, cfg), delta)
-        fitness = sel(active, tree_sum(d2 * w, dim=-1) / torch.clamp(wsum, min=1.0), fitness)
-        ncorr = sel(active, wsum.to(torch.int32), ncorr)
-        j_fin = sel(active, j, j_fin)
-        d2_fin = sel(active, d2, d2_fin)
-        T = sel(active, T_new, T)
+        delta = select(active, _scaled_delta(T, T_new, cfg), delta)
+        fitness = select(active, tree_sum(d2 * w, dim=-1) / torch.clamp(wsum, min=1.0), fitness)
+        ncorr = select(active, wsum.to(torch.int32), ncorr)
+        j_fin = select(active, j, j_fin)
+        d2_fin = select(active, d2, d2_fin)
+        T = select(active, T_new, T)
         it = it + active.to(torch.int32)
 
     converged = delta < 1.0
@@ -313,8 +315,8 @@ def gicp_register(
         p_fin = se3.transform_points(T, src0)
         p_fin = torch.where(source.mask[..., None], p_fin, src0)
         d2_r, j_r = nearest_fn(p_fin)
-        d2_fin = sel(relook, d2_r, d2_fin)
-        j_fin = sel(relook, j_r, j_fin)
+        d2_fin = select(relook, d2_r, d2_fin)
+        j_fin = select(relook, j_r, j_fin)
     corr_mask = source.mask & take_rows(target.mask, j_fin) & (d2_fin <= corr_dist2)
     return GICPResult(
         transform=se3.compose(T, guess),

@@ -24,7 +24,15 @@ sums run in sorted-key order as XLA's CPU scatter-add does. The Newton
 Hessian may be indefinite; its solution is flipped when it is not a
 descent direction by the same exact rule (g . delta > 0).
 
-Single path only: the batched step raises for NDT (ROADMAP A15b).
+Batching: source, target and guess may carry one leading batch dimension
+(the batched replay), with the meaning vmap gives the JAX function. Each
+member sorts its own keys and keeps its own hash table; the outer loop
+runs while any member iterates and freezes the finished ones
+(`torch.where`), and the Moré–Thuente search runs while any member's
+search runs, each member taking exactly the trials its single call
+takes. Every sum over points is pairwise (`tree_sum`), so a member
+rounds as its single call does. The final pass runs kernel B3 once for
+all members (B2 on the single path).
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from locus_tpu_torch.config import RegistrationConfig
-from locus_tpu_torch.core.cloud import PAD_COORD, PointCloud, scatter_rows
+from locus_tpu_torch.core.cloud import PAD_COORD, PointCloud, scatter_rows, take_rows
 from locus_tpu_torch.geometry import se3
 from locus_tpu_torch.ops import neighbors
 from locus_tpu_torch.ops.kernels.nn import SCAN_BT, build_nn_target, chunk_boxes, nearest_bounded_pre
@@ -44,8 +52,9 @@ from locus_tpu_torch.registration.gicp import (
     _inv_sym3,
     _scaled_delta,
     _sym3_vec,
+    select,
 )
-from locus_tpu_torch.utils.linalg import tree_sum
+from locus_tpu_torch.utils.linalg import sum_last, tree_sum
 
 # Voxel-key packing: coordinates clipped to [-_KEY_B, _KEY_B - 1] pack into
 # one non-negative int below 2^30; scenes beyond resolution * _KEY_B from
@@ -81,6 +90,9 @@ def _hash_slot(keys: torch.Tensor, table_size: int) -> torch.Tensor:
 
 
 class NDTTargets(NamedTuple):
+    """One target's components, or batched one set per member (a leading
+    B on every field)."""
+
     means: torch.Tensor      # (V,3) voxel means (PAD_COORD when invalid)
     icov6: torch.Tensor      # (V,6) inverse-covariance components (m00,m01,m02,m11,m12,m22)
     valid: torch.Tensor      # (V,) bool: at least min_points_per_voxel points
@@ -91,15 +103,16 @@ class NDTTargets(NamedTuple):
     def icovs(self) -> torch.Tensor:
         """(V,3,3) dense view."""
         c = self.icov6
-        return c[:, [0, 1, 2, 1, 3, 4, 2, 4, 5]].unflatten(-1, (3, 3))
+        return c[..., [0, 1, 2, 1, 3, 4, 2, 4, 5]].unflatten(-1, (3, 3))
 
 
 def _segment_sum(values: torch.Tensor, is_new: torch.Tensor) -> torch.Tensor:
-    """Per-segment sums of the rows of `values` (N, C), segments being runs
-    that start where `is_new`; one row per possible segment (N rows, the
-    unused ones zero). Each segment sums in row order, as XLA's CPU
-    scatter-add does, with no float atomics."""
-    return torch.segment_reduce(values, "sum", offsets=_segment_offsets(is_new), axis=0, unsafe=True)
+    """Per-segment sums of the rows of `values` (..., N, C), segments being
+    runs that start where `is_new` (..., N), per batch member; one row per
+    possible segment (N rows, the unused ones zero). Each segment sums in
+    row order, as XLA's CPU scatter-add does, with no float atomics."""
+    flat = values.reshape(-1, values.shape[-1])
+    return torch.segment_reduce(flat, "sum", offsets=_segment_offsets(is_new), axis=0, unsafe=True).reshape(values.shape)
 
 
 def build_ndt_targets(target: PointCloud, resolution: float, min_points_per_voxel: int = 6) -> NDTTargets:
@@ -108,37 +121,38 @@ def build_ndt_targets(target: PointCloud, resolution: float, min_points_per_voxe
     sum, then the second moments centred on each voxel's mean (one-pass
     E[xx] - m m^T cancels catastrophically in f32 at scene scale), ridge
     flooring at trace/100, the adjugate inverse, and the 4n-slot hash
-    table."""
+    table. A batched target gets per-member sorts, sums and tables."""
     n = target.capacity
+    lead = target.mask.shape[:-1]
     dev = target.xyz.device
     ijk = torch.floor(target.xyz / resolution).to(torch.int32)
     enc_all = torch.where(target.mask, _encode_keys(ijk), _KEY_PAD)
-    enc_s, order = torch.sort(enc_all, stable=True)    # jnp.argsort is stable
-    mask_s = target.mask[order]
-    xyz_s = torch.where(mask_s[:, None], target.xyz[order], 0.0)
+    enc_s, order = torch.sort(enc_all, dim=-1, stable=True)    # jnp.argsort is stable
+    mask_s = take_rows(target.mask, order)
+    xyz_s = torch.where(mask_s[..., None], take_rows(target.xyz, order), 0.0)
 
-    is_new = torch.ones((n,), dtype=torch.bool, device=dev)
-    is_new[1:] = enc_s[1:] != enc_s[:-1]
-    seg = torch.cumsum(is_new.to(torch.int64), 0) - 1
+    is_new = torch.ones(lead + (n,), dtype=torch.bool, device=dev)
+    is_new[..., 1:] = enc_s[..., 1:] != enc_s[..., :-1]
+    seg = torch.cumsum(is_new.to(torch.int64), -1) - 1
 
     w = mask_s.to(torch.float32)
-    x, y, z = xyz_s[:, 0], xyz_s[:, 1], xyz_s[:, 2]
-    first = _segment_sum(torch.stack([w, w * x, w * y, w * z], dim=1), is_new)
-    counts = first[:, 0]
+    x, y, z = xyz_s[..., 0], xyz_s[..., 1], xyz_s[..., 2]
+    first = _segment_sum(torch.stack([w, w * x, w * y, w * z], dim=-1), is_new)
+    counts = first[..., 0]
     denom = torch.clamp(counts, min=1.0)
-    mx, my, mz = first[:, 1] / denom, first[:, 2] / denom, first[:, 3] / denom
-    cx = torch.where(mask_s, x - mx[seg], 0.0)
-    cy = torch.where(mask_s, y - my[seg], 0.0)
-    cz = torch.where(mask_s, z - mz[seg], 0.0)
-    second = _segment_sum(torch.stack([cx * cx, cx * cy, cx * cz, cy * cy, cy * cz, cz * cz], dim=1), is_new)
-    c00, c01, c02, c11, c12, c22 = (second[:, i] / denom for i in range(6))
+    mx, my, mz = first[..., 1] / denom, first[..., 2] / denom, first[..., 3] / denom
+    cx = torch.where(mask_s, x - take_rows(mx, seg), 0.0)
+    cy = torch.where(mask_s, y - take_rows(my, seg), 0.0)
+    cz = torch.where(mask_s, z - take_rows(mz, seg), 0.0)
+    second = _segment_sum(torch.stack([cx * cx, cx * cy, cx * cz, cy * cy, cy * cz, cz * cz], dim=-1), is_new)
+    c00, c01, c02, c11, c12, c22 = (second[..., i] / denom for i in range(6))
 
     # eigenvalue flooring (reference: lambda_max / 100) as a ridge; the
     # trace bounds lambda_max from above
     ridge = torch.clamp((c00 + c11 + c22) / 100.0, min=1e-6)
     icov = _inv_sym3((c00 + ridge, c01, c02, c11 + ridge, c12, c22 + ridge), ridge=0.0)
     valid = counts >= float(min_points_per_voxel)
-    means = torch.where(valid[:, None], torch.stack([mx, my, mz], dim=1), PAD_COORD)
+    means = torch.where(valid[..., None], torch.stack([mx, my, mz], dim=-1), PAD_COORD)
 
     # Direct-address table: the first row of each voxel writes its key and
     # segment id into its hash slot. Two voxels may hash to one slot: the
@@ -147,9 +161,11 @@ def build_ndt_targets(target: PointCloud, resolution: float, min_points_per_voxe
     # cannot be looked up.
     H = 4 * n
     widx = torch.where(is_new & mask_s, _hash_slot(enc_s, H), H)
-    slot_keys = scatter_rows(torch.full((H,), _KEY_PAD, dtype=torch.int32, device=dev), widx, enc_s.to(torch.int32))
-    slot_seg = scatter_rows(torch.zeros((H,), dtype=torch.int32, device=dev), widx, seg.to(torch.int32))
-    return NDTTargets(means=means, icov6=torch.stack(icov, dim=1), valid=valid, slot_keys=slot_keys, slot_seg=slot_seg)
+    slot_keys = scatter_rows(
+        torch.full(lead + (H,), _KEY_PAD, dtype=torch.int32, device=dev), widx, enc_s.to(torch.int32)
+    )
+    slot_seg = scatter_rows(torch.zeros(lead + (H,), dtype=torch.int32, device=dev), widx, seg.to(torch.int32))
+    return NDTTargets(means=means, icov6=torch.stack(icov, dim=-1), valid=valid, slot_keys=slot_keys, slot_seg=slot_seg)
 
 
 # ---------------------------------------------------------------------------
@@ -209,25 +225,30 @@ def _mt_update_interval(a_l, f_l, g_l, a_u, f_u, g_u, a_t, f_t, g_t):
     )
 
 
-def _more_thuente_alpha(phi_fn, phi_0, d_phi_0, step_init, step_min, step_max):
-    """The Search Algorithm for T(mu) [Moré, Thuente 1994] on 0-d f32
-    tensors: phi_fn(alpha) -> (phi, dphi). Runs the auxiliary psi until the
-    interval closes, then phi; stops on sufficient decrease and curvature
-    (mu = 1e-4, nu = 0.9), interval convergence or 10 trials. Each trial's
-    test is read on the host, so the trial count equals JAX's."""
+def _more_thuente_alpha(phi_fn, phi_0, d_phi_0, step_init, step_min, step_max, active=None):
+    """The Search Algorithm for T(mu) [Moré, Thuente 1994] on f32 tensors
+    of one value per batch member (0-d on the single path): phi_fn(alpha)
+    -> (phi, dphi). Runs the auxiliary psi until the interval closes, then
+    phi; stops on sufficient decrease and curvature (mu = 1e-4, nu = 0.9),
+    interval convergence or 10 trials. Each trial's test is read on the
+    host, so the trial count equals JAX's. Batched, the trials run while
+    any member's search runs; a member whose search has stopped (or that
+    `active` leaves out) keeps its values, so it takes exactly the trials
+    of its single call."""
     mu, nu = 1e-4, 0.9
     a_t = torch.minimum(torch.maximum(step_init, step_min), step_max)
     phi_t, dphi_t = phi_fn(a_t)
     g0 = (1.0 - mu) * d_phi_0
     zero = torch.zeros_like(phi_0)
     a_l, f_l, g_l, a_u, f_u, g_u = zero, zero, g0, zero, zero, g0
-    open_i = torch.ones((), dtype=torch.bool, device=phi_0.device)
-    conv = (step_max - step_min) < 0.0
-    it = 0
-    while True:
+    open_i = torch.ones(phi_0.shape, dtype=torch.bool, device=phi_0.device)
+    conv = ((step_max - step_min) < 0.0).expand(phi_0.shape)
+    running = open_i if active is None else active
+    for it in range(11):
         psi_t = phi_t - phi_0 - mu * a_t * d_phi_0
         done = (psi_t <= 0.0) & (dphi_t <= -nu * d_phi_0)
-        if it >= 10 or not bool((~conv) & (~done)):
+        running = running & ~conv & ~done
+        if it >= 10 or not bool(running.any()):
             break
         dpsi_t = dphi_t - mu * d_phi_0
         f_t = torch.where(open_i, psi_t, phi_t)
@@ -240,17 +261,19 @@ def _more_thuente_alpha(phi_fn, phi_0, d_phi_0, step_init, step_min, step_max):
 
         # the interval closes: endpoints from psi to phi form
         close = open_i & (psi_n <= 0.0) & (dpsi_n >= 0.0)
-        f_l = torch.where(close, f_l + phi_0 + mu * d_phi_0 * a_l, f_l)
-        g_l = torch.where(close, g_l + mu * d_phi_0, g_l)
-        f_u = torch.where(close, f_u + phi_0 + mu * d_phi_0 * a_u, f_u)
-        g_u = torch.where(close, g_u + mu * d_phi_0, g_u)
-        open_i = open_i & ~close
+        n_f_l = torch.where(close, f_l + phi_0 + mu * d_phi_0 * a_l, f_l)
+        n_g_l = torch.where(close, g_l + mu * d_phi_0, g_l)
+        n_f_u = torch.where(close, f_u + phi_0 + mu * d_phi_0 * a_u, f_u)
+        n_g_u = torch.where(close, g_u + mu * d_phi_0, g_u)
+        n_open = open_i & ~close
 
-        f_n = torch.where(open_i, psi_n, phi_n)
-        g_n = torch.where(open_i, dpsi_n, dphi_n)
-        a_l, f_l, g_l, a_u, f_u, g_u, conv = _mt_update_interval(a_l, f_l, g_l, a_u, f_u, g_u, a_n, f_n, g_n)
-        a_t, phi_t, dphi_t = a_n, phi_n, dphi_n
-        it += 1
+        f_n = torch.where(n_open, psi_n, phi_n)
+        g_n = torch.where(n_open, dpsi_n, dphi_n)
+        new = _mt_update_interval(a_l, n_f_l, n_g_l, a_u, n_f_u, n_g_u, a_n, f_n, g_n) + (n_open, a_n, phi_n, dphi_n)
+        old = (a_l, f_l, g_l, a_u, f_u, g_u, conv, open_i, a_t, phi_t, dphi_t)
+        (a_l, f_l, g_l, a_u, f_u, g_u, conv, open_i, a_t, phi_t, dphi_t) = (
+            torch.where(running, x, y) for x, y in zip(new, old)
+        )
     return a_t
 
 
@@ -259,19 +282,22 @@ def _more_thuente_alpha(phi_fn, phi_0, d_phi_0, step_init, step_min, step_max):
 # ---------------------------------------------------------------------------
 
 def _mahalanobis(M, r: torch.Tensor):
-    """(B r components, r^T B r) of residuals r (N,3) under components M."""
-    Br = _sym3_vec(M, r[:, 0], r[:, 1], r[:, 2])
-    return Br, r[:, 0] * Br[0] + r[:, 1] * Br[1] + r[:, 2] * Br[2]
+    """(B r components, r^T B r) of residuals r (...,N,3) under components M."""
+    Br = _sym3_vec(M, r[..., 0], r[..., 1], r[..., 2])
+    return Br, r[..., 0] * Br[0] + r[..., 1] * Br[1] + r[..., 2] * Br[2]
 
 
 def _newton_step_comps(p_cur, mu, M, w_gate, gauss_d1: float, gauss_d2: float, lm: float, step_size: float,
-                       line_search: str = "more_thuente", tf_eps: float = 1e-3) -> torch.Tensor:
+                       line_search: str = "more_thuente", tf_eps: float = 1e-3, active=None) -> torch.Tensor:
     """One Newton direction and line search on the NDT score
     F(xi) = sum d1 exp(-d2/2 r^T B r), r = exp(xi) p - mu, on the SE(3)
     tangent: g = sum c u, H = sum c (J^T B J - d2 u u^T) with
-    u = J^T B r and c = -d1 d2 e. Returns the accepted tangent step (6,)."""
+    u = J^T B r and c = -d1 d2 e. Returns the accepted tangent step (...,6),
+    one per batch member; `active` (batched) names the members whose
+    search matters (the others' steps are discarded by the caller)."""
     dev = p_cur.device
-    px, py, pz = p_cur[:, 0], p_cur[:, 1], p_cur[:, 2]
+    lead = p_cur.shape[:-2]
+    px, py, pz = p_cur[..., 0], p_cur[..., 1], p_cur[..., 2]
     Br, m = _mahalanobis(M, p_cur - mu)
     # a negative Mahalanobis means an indefinite icov: dropped, as the
     # reference drops e_x_cov_x > 1
@@ -305,23 +331,24 @@ def _newton_step_comps(p_cur, mu, M, w_gate, gauss_d1: float, gauss_d2: float, l
         + [cu * u[a] * u[b] for a, b in pairs],
         dim=-1,
     ))
-    g = s[:6]
-    H_tt = s[[6, 7, 8, 7, 9, 10, 8, 10, 11]].reshape(3, 3)
-    H_tw = -s[12:21].reshape(3, 3)
-    H_ww = s[[21, 22, 23, 22, 24, 25, 23, 25, 26]].reshape(3, 3)
-    outer = torch.zeros((6, 6), dtype=s.dtype, device=dev)
-    rows, cols = zip(*pairs)
-    outer[list(rows), list(cols)] = s[27:]
-    outer[list(cols), list(rows)] = s[27:]
-    H = torch.cat([torch.cat([H_tt, H_tw], 1), torch.cat([H_tw.T, H_ww], 1)], 0) - outer
-    H = H + (lm + 1e-6) * torch.clamp(torch.trace(torch.abs(H)) / 6.0, min=1.0) * torch.eye(6, device=dev)
+    g = s[..., :6]
+    H_tt = s[..., [6, 7, 8, 7, 9, 10, 8, 10, 11]].unflatten(-1, (3, 3))
+    H_tw = -s[..., 12:21].unflatten(-1, (3, 3))
+    H_ww = s[..., [21, 22, 23, 22, 24, 25, 23, 25, 26]].unflatten(-1, (3, 3))
+    outer = torch.zeros(lead + (6, 6), dtype=s.dtype, device=dev)
+    rows, cols = (list(x) for x in zip(*pairs))
+    outer[..., rows, cols] = s[..., 27:]
+    outer[..., cols, rows] = s[..., 27:]
+    H = torch.cat([torch.cat([H_tt, H_tw], -1), torch.cat([H_tw.transpose(-1, -2), H_ww], -1)], -2) - outer
+    trace_abs = sum_last(torch.diagonal(torch.abs(H), dim1=-2, dim2=-1))
+    H = H + ((lm + 1e-6) * torch.clamp(trace_abs / 6.0, min=1.0))[..., None, None] * torch.eye(6, device=dev)
     # H may be indefinite (the -d2 u u^T term): a float64 LU solve, then
     # the reference's 'not a descent direction -> reverse' rule
-    delta = -torch.linalg.solve(H.double(), g.double()).float()
-    delta = torch.where(torch.any(~torch.isfinite(delta)), -g, delta)
-    delta = torch.where(torch.dot(g, delta) > 0, -delta, delta)
+    delta = -torch.linalg.solve(H.double(), g.double()[..., None])[..., 0].float()
+    delta = torch.where(torch.any(~torch.isfinite(delta), dim=-1, keepdim=True), -g, delta)
+    delta = torch.where((sum_last(g * delta) > 0)[..., None], -delta, delta)
     d1w = gauss_d1 * w_gate
-    F0 = torch.sum(d1w * e)
+    F0 = tree_sum(d1w * e, dim=-1)
 
     def score_terms(T_a):
         p_a = se3.transform_points(T_a, p_cur)
@@ -332,40 +359,44 @@ def _newton_step_comps(p_cur, mu, M, w_gate, gauss_d1: float, gauss_d2: float, l
         # the reference's wiring: search along the normalised direction,
         # first trial at the Newton-step norm, alpha in [tf_eps/2, step_size]
         nrm = se3.norm(delta)
-        dirn = delta / torch.clamp(nrm, min=1e-12)
-        dv, dw = dirn[:3], dirn[3:]
-        d_phi_0 = torch.dot(g, dirn)
+        dirn = delta / torch.clamp(nrm, min=1e-12)[..., None]
+        dv, dw = dirn[..., :3, None], dirn[..., 3:, None]
+        d_phi_0 = sum_last(g * dirn)
 
         def phi_fn(alpha):
-            p_a, Bra, ea = score_terms(se3.se3_exp(alpha * dirn))
-            F = torch.sum(d1w * ea)
+            p_a, Bra, ea = score_terms(se3.se3_exp(alpha[..., None] * dirn))
+            F = tree_sum(d1w * ea, dim=-1)
             ca = coef * ea * w_gate
-            px_, py_, pz_ = p_a[:, 0], p_a[:, 1], p_a[:, 2]
-            cx = dw[1] * pz_ - dw[2] * py_
-            cy = dw[2] * px_ - dw[0] * pz_
-            cz = dw[0] * py_ - dw[1] * px_
-            dF = torch.sum(ca * (Bra[0] * (dv[0] + cx) + Bra[1] * (dv[1] + cy) + Bra[2] * (dv[2] + cz)))
+            px_, py_, pz_ = p_a[..., 0], p_a[..., 1], p_a[..., 2]
+            cx = dw[..., 1, :] * pz_ - dw[..., 2, :] * py_
+            cy = dw[..., 2, :] * px_ - dw[..., 0, :] * pz_
+            cz = dw[..., 0, :] * py_ - dw[..., 1, :] * px_
+            dF = tree_sum(
+                ca * (Bra[0] * (dv[..., 0, :] + cx) + Bra[1] * (dv[..., 1, :] + cy) + Bra[2] * (dv[..., 2, :] + cz)),
+                dim=-1,
+            )
             return F, dF
 
         alpha = _more_thuente_alpha(
             phi_fn, F0, d_phi_0, step_init=nrm,
             step_min=torch.tensor(tf_eps / 2.0, dtype=torch.float32, device=dev),
             step_max=torch.tensor(step_size, dtype=torch.float32, device=dev),
+            active=active,
         )
         alpha = torch.where(d_phi_0 >= 0.0, 0.0, alpha)   # degenerate direction: no move
-        return alpha * dirn
+        return alpha[..., None] * dirn
 
     # "armijo": the first of 5 backtracking candidates with sufficient
     # decrease (else the smallest); one step moves at most 10 step sizes
     cap = 10.0 * step_size
     nrm = se3.norm(delta)
-    delta = delta * torch.clamp(cap / torch.clamp(nrm, min=1e-12), max=1.0)
-    gTd = torch.dot(g, delta)
+    delta = delta * torch.clamp(cap / torch.clamp(nrm, min=1e-12), max=1.0)[..., None]
+    gTd = sum_last(g * delta)
     alphas = torch.tensor([1.0, 0.5, 0.25, 0.125, 0.0625], dtype=torch.float32, device=dev)
-    Fs = torch.stack([torch.sum(d1w * score_terms(se3.se3_exp(a * delta))[2]) for a in alphas])
-    ok = Fs <= F0 + 1e-4 * alphas * gTd
-    alpha = torch.where(torch.any(ok), alphas[torch.argmax(ok.to(torch.int8))], alphas[-1])
-    return alpha * delta
+    Fs = torch.stack([tree_sum(d1w * score_terms(se3.se3_exp(a * delta))[2], dim=-1) for a in alphas], dim=-1)
+    ok = Fs <= F0[..., None] + 1e-4 * alphas * gTd[..., None]
+    alpha = torch.where(torch.any(ok, dim=-1), alphas[torch.argmax(ok.to(torch.int8), dim=-1)], alphas[-1])
+    return alpha[..., None] * delta
 
 
 # ---------------------------------------------------------------------------
@@ -394,14 +425,15 @@ def ndt_register(
     **_unused,
 ) -> GICPResult:
     """Align `source` to `target` with the NDT Gaussian-voxel objective;
-    returns the source->target transform (guess included)."""
-    if source.mask.dim() != 1:
-        raise NotImplementedError("batched NDT registration: ROADMAP A15b")
+    returns the source->target transform (guess included). With a leading
+    batch dimension on the clouds (and the guess), each member is aligned
+    as its own single call would align it."""
     if cfg.ndt_neighborhood not in _OFFSETS:
         raise ValueError(
             f"ndt_neighborhood must be direct1|direct7|direct26|kdtree, got {cfg.ndt_neighborhood!r}"
         )
     dev = source.xyz.device
+    lead = source.mask.shape[:-1]
     if guess is None:
         guess = se3.identity(dev)
     res = cfg.ndt_resolution
@@ -409,7 +441,7 @@ def ndt_register(
     gauss_d1, gauss_d2 = _gauss_constants(res, outlier_ratio)
 
     src0 = se3.transform_points(guess, source.xyz)
-    src0 = torch.where(source.mask[:, None], src0, source.xyz)
+    src0 = torch.where(source.mask[..., None], src0, source.xyz)
 
     # KDTREE gate: the reference radius-searches occupied-leaf centroids
     # within one resolution; such a centroid lies in the query voxel's
@@ -419,64 +451,72 @@ def ndt_register(
     offs = torch.tensor(_OFFSETS[cfg.ndt_neighborhood], dtype=torch.int32, device=dev)
     K = offs.shape[0]
     n_src = source.capacity
-    table = targets.slot_keys.shape[0]
-    src0f = src0.repeat_interleave(K, dim=0)
-    maskf = source.mask.repeat_interleave(K)
+    table = targets.slot_keys.shape[-1]
+    src0f = src0.repeat_interleave(K, dim=-2)
+    maskf = source.mask.repeat_interleave(K, dim=-1)
 
     def lookup(p):
-        """Each point's K candidate voxels: (segment index, hit)."""
-        keyq = _encode_keys(torch.floor(p / res).to(torch.int32)[:, None, :] + offs[None]).reshape(-1)
+        """Each point's K candidate voxels in its member's table: (segment
+        index, hit)."""
+        keyq = _encode_keys(torch.floor(p / res).to(torch.int32)[..., :, None, :] + offs).flatten(-2)
         slot = _hash_slot(keyq, table)
-        idx = targets.slot_seg[slot].to(torch.int64)
-        return idx, (targets.slot_keys[slot].to(torch.int64) == keyq) & targets.valid[idx]
+        idx = take_rows(targets.slot_seg, slot).to(torch.int64)
+        return idx, (take_rows(targets.slot_keys, slot).to(torch.int64) == keyq) & take_rows(targets.valid, idx)
 
-    def outer_body(use_newton, T):
+    def outer_body(use_newton, T, active):
         p = se3.transform_points(T, src0)
         jf, hit = lookup(p)
-        pf = p.repeat_interleave(K, dim=0)
-        mu = torch.where(hit[:, None], targets.means[jf], pf)    # misses: zero residual
+        pf = p.repeat_interleave(K, dim=-2)
+        mu = torch.where(hit[..., None], take_rows(targets.means, jf), pf)    # misses: zero residual
         if kdtree_gate:
             dmu = pf - mu
-            hit = hit & (torch.sum(dmu * dmu, dim=1) <= res * res)
+            hit = hit & (sum_last(dmu * dmu) <= res * res)
         w_gate = (maskf & hit).to(torch.float32)
-        M = tuple(targets.icov6[jf, i] for i in range(6))
+        icov = take_rows(targets.icov6, jf)
+        M = tuple(icov[..., i] for i in range(6))
         r = pf - mu
         _, maha = _mahalanobis(M, r)
         w = w_gate * torch.exp(-0.5 * gauss_d2 * torch.clamp(maha, max=50.0)) * (maha >= 0.0)
 
         if use_newton:
-            p_cur = torch.where(maskf[:, None], se3.transform_points(T, src0f), mu)
+            p_cur = torch.where(maskf[..., None], se3.transform_points(T, src0f), mu)
             step = _newton_step_comps(
                 p_cur, mu, M, w_gate, gauss_d1, gauss_d2, cfg.levenberg_lambda, cfg.ndt_step_size,
-                line_search=cfg.ndt_line_search, tf_eps=cfg.tf_epsilon,
+                line_search=cfg.ndt_line_search, tf_eps=cfg.tf_epsilon, active=active,
             )
             T_new = se3.compose(se3.se3_exp(step), T)
         else:
             T_new = T
             for _ in range(cfg.inner_iterations):
-                p_cur = torch.where(maskf[:, None], se3.transform_points(T_new, src0f), mu)
+                p_cur = torch.where(maskf[..., None], se3.transform_points(T_new, src0f), mu)
                 dx = _gauss_newton_step_comps(p_cur, mu, M, w, cfg.levenberg_lambda)
                 T_new = se3.compose(se3.se3_exp(dx), T_new)
         T_new = se3.make_transform(se3.orthonormalize(se3.rotation(T_new)), se3.translation(T_new))
         delta = _scaled_delta(T, T_new, cfg)
         # fitness: squared distance to the nearest hit component per point
-        d2k = torch.sum(r * r, dim=1).reshape(n_src, K)
-        d2min = torch.amin(torch.where(hit.reshape(n_src, K), d2k, float("inf")), dim=1)
+        d2k = sum_last(r * r).unflatten(-1, (n_src, K))
+        d2min = torch.amin(torch.where(hit.unflatten(-1, (n_src, K)), d2k, float("inf")), dim=-1)
         matched = source.mask & torch.isfinite(d2min)
-        nmatch = torch.sum(matched.to(torch.float32))
-        fitness = torch.sum(torch.where(matched, d2min, 0.0)) / torch.clamp(nmatch, min=1.0)
-        return T_new, delta, fitness, nmatch.to(torch.int32)
+        nmatch = torch.sum(matched, dim=-1, dtype=torch.int32)
+        fitness = tree_sum(torch.where(matched, d2min, 0.0), dim=-1) / torch.clamp(nmatch.to(torch.float32), min=1.0)
+        return T_new, delta, fitness, nmatch
 
     def run(carry, max_it, use_newton):
+        """The outer loop, while any member iterates; a member that has
+        stopped keeps its carry."""
         T, it, delta, fitness, ncorr = carry
-        while bool((it < max_it) & (delta >= 1.0)):
-            T, delta, fitness, ncorr = outer_body(use_newton, T)
-            it = it + 1
+        while True:
+            active = (it < max_it) & (delta >= 1.0)
+            if not bool(active.any()):
+                break
+            new = outer_body(use_newton, T, active)
+            T, delta, fitness, ncorr = (select(active, a, b) for a, b in zip(new, (T, delta, fitness, ncorr)))
+            it = it + active.to(torch.int32)
         return T, it, delta, fitness, ncorr
 
-    inf = torch.tensor(float("inf"), device=dev)
-    carry = (se3.identity(dev), torch.tensor(0, dtype=torch.int32, device=dev), inf, inf,
-             torch.tensor(0, dtype=torch.int32, device=dev))
+    inf = torch.full(lead, float("inf"), device=dev)
+    zero = torch.zeros(lead, dtype=torch.int32, device=dev)
+    carry = (se3.identity(dev).expand(lead + (4, 4)), zero, inf, inf, zero)
     use_newton = cfg.ndt_optimizer == "newton"
     if use_newton and cfg.ndt_newton_warmstart > 0:
         # IRLS warm start: a few full Gauss-Newton iterations on the same
@@ -490,10 +530,10 @@ def ndt_register(
 
     final = se3.compose(T_fin, guess)
     # Final correspondences against the raw target points, for the
-    # covariance downstream: kernel B2 at SCAN_BT, bounded at corr_dist
-    # (anything farther is gated below anyway); the dense 1-NN where the
-    # JAX function takes it, below 128 source points.
-    p_fin = torch.where(source.mask[:, None], se3.transform_points(final, source.xyz), source.xyz)
+    # covariance downstream: kernel B2 (batched B3) at SCAN_BT, bounded at
+    # corr_dist (anything farther is gated below anyway); the dense 1-NN
+    # where the JAX function takes it, below 128 source points.
+    p_fin = torch.where(source.mask[..., None], se3.transform_points(final, source.xyz), source.xyz)
     if source.capacity >= 128:
         t_aug = build_nn_target(target.xyz, bt=SCAN_BT)
         c_min, c_max = chunk_boxes(target.xyz, target.mask, t_aug.shape[-2], bt=SCAN_BT)
@@ -501,7 +541,7 @@ def ndt_register(
         d2_fin = torch.where(torch.isfinite(d2_fin), d2_fin, 1e12)
     else:
         d2_fin, j_fin = neighbors.nearest(p_fin, target.xyz)
-    corr_mask = source.mask & target.mask[j_fin] & (d2_fin <= cfg.corr_dist ** 2)
+    corr_mask = source.mask & take_rows(target.mask, j_fin) & (d2_fin <= cfg.corr_dist ** 2)
     return GICPResult(
         transform=final,
         converged=delta < 1.0,

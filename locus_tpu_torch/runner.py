@@ -269,10 +269,11 @@ def stack_packed(packed_list):
     return {k: torch.stack([p[k] for p in packed_list], dim=1) for k in packed_list[0]}
 
 
-def _replay(cfg: LocusConfig, state, packed, report: Optional[RateReport]):
+def _replay(cfg: LocusConfig, state, packed, report: Optional[RateReport], outputs: Optional[list] = None):
     """Step through the T scans of `packed`; returns (state, (poses,
     condition numbers, map sizes)) stacked over the scans. With a report,
-    each scan is timed up to a device synchronisation."""
+    each scan is timed up to a device synchronisation; with an `outputs`
+    list, each scan's whole StepOutput is appended to it."""
     poses, conds, sizes = [], [], []
     dev = packed["scan_xyz"].device
     for i in range(packed["scan_xyz"].shape[0]):
@@ -282,6 +283,8 @@ def _replay(cfg: LocusConfig, state, packed, report: Optional[RateReport]):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             report.add(time.perf_counter() - t0)
+        if outputs is not None:
+            outputs.append(out)
         poses.append(out.pose)
         conds.append(out.condition_number)
         sizes.append(out.map_size)
@@ -290,15 +293,15 @@ def _replay(cfg: LocusConfig, state, packed, report: Optional[RateReport]):
 
 def make_scan_replay(cfg: LocusConfig, mesh=None):
     """The replay of one prepacked sequence (counterpart of the JAX
-    `make_scan_replay`): replay(state, packed, report=None) -> (state,
-    (poses (T,4,4), cond (T,), map_sizes (T,))). It is the reference the
-    batched replay is held against. `mesh` (the sharded map) is ROADMAP
+    `make_scan_replay`): replay(state, packed, report=None, outputs=None)
+    -> (state, (poses (T,4,4), cond (T,), map_sizes (T,))). It is the
+    reference the batched replay is held against. `mesh` (the sharded map) is ROADMAP
     A16; the JAX `unroll` is a `lax.scan` notion with no counterpart."""
     if mesh is not None:
         raise NotImplementedError("make_scan_replay(mesh=): the sharded map is ROADMAP A16")
 
-    def replay(state, packed, report: Optional[RateReport] = None):
-        return _replay(cfg, state, packed, report)
+    def replay(state, packed, report: Optional[RateReport] = None, outputs: Optional[list] = None):
+        return _replay(cfg, state, packed, report, outputs)
 
     return replay
 
@@ -306,10 +309,13 @@ def make_scan_replay(cfg: LocusConfig, mesh=None):
 def make_batched_replay(cfg: LocusConfig, mesh=None, use_pallas: Optional[bool] = None):
     """Multi-sequence batch replay (counterpart of the JAX
     `make_batched_replay`, a vmap of the scan replay): replay(states,
-    packed, report=None) -> (states, (poses (T,B,4,4), cond (T,B),
-    map_sizes (T,B))) on states stacked by `pipeline.stack_states` and
-    inputs stacked by `stack_packed`. One batched step per tick: every op
-    and kernel launch serves all B robots (kernels B3 and B4).
+    packed, report=None, outputs=None) -> (states, (poses (T,B,4,4), cond
+    (T,B), map_sizes (T,B))) on states stacked by `pipeline.stack_states`
+    and inputs stacked by `stack_packed`, in every single-card
+    configuration of the step. One batched step per tick: every op and
+    kernel launch serves all B robots (kernels B3, and B4 where the step
+    runs radius normals), and each robot equals its own `make_scan_replay`
+    bit for bit.
 
     `use_pallas=False` runs the kernels' plain PyTorch versions
     (`dispatch.no_kernels()`, the ablation); None and True run the kernels
@@ -319,9 +325,9 @@ def make_batched_replay(cfg: LocusConfig, mesh=None, use_pallas: Optional[bool] 
     if mesh is not None:
         raise NotImplementedError("make_batched_replay(mesh=): the sharded map is ROADMAP A16")
 
-    def replay(states, packed, report: Optional[RateReport] = None):
+    def replay(states, packed, report: Optional[RateReport] = None, outputs: Optional[list] = None):
         ctx = no_kernels() if use_pallas is False else contextlib.nullcontext()
         with ctx:
-            return _replay(cfg, states, packed, report)
+            return _replay(cfg, states, packed, report, outputs)
 
     return replay

@@ -119,7 +119,8 @@ def test_padding_invariance():
 
 def test_registry_and_unported_modes():
     """Both registration methods resolve; the covariance modes other than
-    the disk path run single only (the batched step is ROADMAP A15b)."""
+    the disk path, and NDT, also run batched, each member as its single
+    call."""
     import torch
 
     from locus_tpu_torch.registration.ndt import ndt_register
@@ -132,9 +133,10 @@ def test_registry_and_unported_modes():
     res = tgicp(src, src, cfg=TRC(covariance_mode="adaptive"))
     np.testing.assert_allclose(np_(res.transform), np.eye(4), atol=1e-5)
     batched = type(src)(*(torch.stack([a, a]) for a in src))
-    with pytest.raises(NotImplementedError, match="A15b"):
-        tgicp(batched, batched, cfg=TRC(covariance_mode="adaptive"))
-    with pytest.raises(NotImplementedError, match="A15b"):
-        ndt_register(batched, batched, cfg=TRC(registration_method="ndt"))
+    for register, cfg in ((tgicp, TRC(covariance_mode="adaptive")), (ndt_register, TRC(registration_method="ndt"))):
+        one, both = register(src, src, cfg=cfg), register(batched, batched, cfg=cfg)
+        for b in range(2):
+            np.testing.assert_array_equal(np_(both.transform[b]), np_(one.transform))
+            assert int(both.iterations[b]) == int(one.iterations)
     with pytest.raises(ValueError):
         make_registrar(TRC(registration_method="icp"))

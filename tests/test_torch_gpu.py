@@ -744,6 +744,76 @@ def test_paths_on_the_card_match_plain(cuda_device, name):
     np.testing.assert_array_equal(poses, plain)
 
 
+@pytest.mark.parametrize("name", ["ndt", "features", "voxel_hash"])
+def test_batched_paths_on_the_card_match_single(cuda_device, name):
+    """The batched replay of each path (ROADMAP A15b) through kernels B3
+    and B4 gives each robot the poses, condition numbers and map sizes of
+    its make_scan_replay on the card, bit for bit; B3 launches on every
+    path, B4 except on features, no single-member kernel."""
+    cfg = _path_cfg(name)
+    seqs = [make_tunnel_sequence(num_scans=5, azimuth_steps=256, step=s, seed=i)
+            for i, s in enumerate((0.3, 0.4, 0.35))]
+    packed = [runner.pack_sequence(s, cfg) for s in seqs]
+    single = runner.make_scan_replay(cfg)
+    ref = []
+    for s, p in zip(seqs, packed):
+        st = pipeline.init_state(cfg, initial_pose=torch.as_tensor(s.gt_poses[0], dtype=torch.float32))
+        ref.append(single(st, p)[1])
+    states = pipeline.init_states(cfg, np.stack([s.gt_poses[0] for s in seqs]))
+    tmom.launches = tmom.batched_launches = 0
+    before, before_single = dict(tnn.batched_launches), dict(tnn.launches)
+    _, batched = runner.make_batched_replay(cfg)(states, runner.stack_packed(packed))
+    assert all(tnn.batched_launches[b] > before[b] for b in before)
+    assert (tmom.batched_launches > 0) == (name != "features")
+    assert tmom.launches == 0 and tnn.launches == before_single
+    for b in range(len(seqs)):
+        for x, y in zip(batched, ref[b]):
+            np.testing.assert_array_equal(np_(x[:, b]), np_(y))
+
+
+def test_batched_nn_kernel_on_voxel_hash_operands_matches_plain_and_brute_force(cuda_device):
+    """Kernel B3 at BT on four robots' voxel-hash operands, where a tile
+    visits every chunk: score bits and index equal to the plain version's,
+    and each winner the brute-force nearest target (or one as near, to the
+    f32 score's rounding)."""
+    from locus_tpu_torch.mapping import voxel_hash_map as vh
+
+    mcfg = cfg_mod.MapperConfig(map_capacity=1 << 14, keyframe_capacity=4096, map_voxel_leaf=0.1)
+    kfs = _keyframes(cuda_device, n=7, capacity=4096)
+    states, queries = [], []
+    for b in range(4):
+        st = vh.init_map(mcfg)
+        for kf in kfs[b: b + 3]:
+            st = vh.insert_keyframe(st, kf, mcfg)
+        states.append(st)
+        queries.append(kfs[b + 3].xyz + torch.tensor([0.03, -0.02, 0.01], device=cuda_device))
+    st, q = pipeline.stack_states(states), torch.stack(queries)
+    cnt, ids = tnn.visit_lists(*tnn.tile_boxes(q), st.chunk_min, st.chunk_max, 2.0 * 2.0)
+    num_chunks = st.nn_aug.shape[-2] // tnn.BT
+    assert float(cnt.float().mean()) > 0.9 * num_chunks
+    qp = tnn.pack_query(q)
+    before = tnn.batched_launches[tnn.BT]
+    kd, ki = tnn.nn_visits_batched(cnt, ids, qp, st.nn_aug, tnn.BT)
+    torch.cuda.synchronize()
+    assert tnn.batched_launches[tnn.BT] == before + 1
+    pd, pi = tnn.nn_visits_plain(cnt, ids, qp, st.nn_aug, tnn.BT)
+    np.testing.assert_array_equal(np_(kd).view(np.int32), np_(pd).view(np.int32))
+    np.testing.assert_array_equal(np_(ki), np_(pi))
+    n = q.shape[1]
+    for b in range(4):
+        slot = np.nonzero(np_(st.cloud.mask[b]))[0]
+        t = np_(st.cloud.xyz[b])[slot].astype(np.float64)
+        qq = np_(q[b]).astype(np.float64)
+        valid = np.all(np.abs(qq) < 1e7, axis=1)
+        full = ((qq[:, None, :] - t[None]) ** 2).sum(-1)
+        best = full.min(1)
+        got = ((qq - np_(st.cloud.xyz[b]).astype(np.float64)[np_(ki[b, :n])]) ** 2).sum(-1)
+        assert np.all(np_(st.cloud.mask[b])[np_(ki[b, :n])][valid])
+        # the score |t|^2 - 2 q.t rounds at f32 eps of |q|^2 + |t|^2
+        slack = 4 * 2.0 ** -23 * ((qq * qq).sum(1) + (t * t).sum(1).max()) + 1e-9
+        assert np.all((got - best)[valid] <= slack[valid])
+
+
 # -- live serving and the SLAM backend -------------------------------------
 
 def test_reanchored_map_nearest_matches_plain_and_brute_force(cuda_device):

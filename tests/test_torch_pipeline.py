@@ -282,13 +282,15 @@ def test_gt_map_bootstrap_matches_jax(tunnel, tmp_path, structure):
 
 
 def test_unported_branches_raise():
-    """The sharded map (A16), and the batched step outside the default
-    configuration (A15b), raise."""
+    """The sharded map (A16) raises; the batched step, which raised outside
+    the default configuration until ROADMAP A15b was done, now takes these
+    configurations: the states initialise and one batched step runs."""
     from locus_tpu_torch import pipeline as tpl
 
     base = _port_cfg(small_cfg())
     with pytest.raises(NotImplementedError, match="A16"):
         tpl.init_state(base.replace(mapper=R(base.mapper, num_shards=2)), device="cpu")
+    seq = make_tunnel_sequence(num_scans=1, azimuth_steps=64, seed=0)
     for cfg in (
         base.replace(filtering=R(base.filtering, extract_features=True)),
         base.replace(filtering=R(base.filtering, outlier_filter=True)),
@@ -299,10 +301,9 @@ def test_unported_branches_raise():
         base.replace(mapper=R(base.mapper, keyframe_at_map_resolution=True)),
         base.replace(b_monitor_space=True),
     ):
-        with pytest.raises(NotImplementedError, match="A15b"):
-            tpl.init_states(cfg, num_robots=2, device="cpu")
-        state = tpl.stack_states([tpl.init_state(base, device="cpu")] * 2)
-        seq = make_tunnel_sequence(num_scans=1, azimuth_steps=64, seed=0)
+        state = tpl.init_states(cfg, num_robots=2, device="cpu")
+        assert state.stats.scan_count.shape == (2,)
         args = [torch.stack([a, a]) for a in trunner.scan_inputs(_port_seq(seq), 0, cfg, "cpu")]
-        with pytest.raises(NotImplementedError, match="A15b"):
-            trunner.replay_step(state, *args, cfg=cfg)
+        state, out = trunner.replay_step(state, *args, cfg=cfg)
+        assert out.pose.shape == (2, 4, 4) and bool(torch.isfinite(out.pose).all())
+        np.testing.assert_array_equal(out.pose[0].numpy(), out.pose[1].numpy())

@@ -4,15 +4,18 @@ the PyTorch port's single and batched replays on a CUDA card.
 
 The robots are chip_smoke.py's batched phase (production config; robot b
 on make_tunnel_sequence(num_scans, azimuth_steps=1800, step=0.30+0.05b,
-seed=b)). Each round replays robot 0 alone through runner.make_scan_replay
-and all B robots through runner.make_batched_replay, in alternating order
-(single first in even rounds), timing every step to a device
-synchronisation. It reports, per round and mode, the p50 step time over
+seed=b)); with --config ndt|features|voxel_hash, that path's
+configuration (chip_smoke.path_config) and its robots
+(chip_smoke.robot_sequences; NDT on its world tunnel). Each round
+replays robot 0 alone through runner.make_scan_replay and all B robots
+through runner.make_batched_replay, in alternating order (single first
+in even rounds), timing every step to a device synchronisation. It reports, per round and mode, the p50 step time over
 the last `--window` steps, and the ratio of the batched tick's p50 to the
 single scan's p50 in the same round.
 
     python tools/torch_batched_bench.py [--robots 4] [--scans 24]
-        [--rounds 6] [--window 16] [--out chiprun_out/batched_bench.json]
+        [--config gicp] [--rounds 6] [--window 16]
+        [--out chiprun_out/batched_bench.json]
 
 Imports neither JAX nor locus_tpu; needs a CUDA device.
 """
@@ -29,6 +32,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--robots", type=int, default=4)
     ap.add_argument("--scans", type=int, default=24)
+    ap.add_argument("--config", choices=("gicp", "ndt", "features", "voxel_hash"), default="gicp",
+                    help="the single-card configuration of every robot (chip_smoke.path_config)")
     ap.add_argument("--rounds", type=int, default=6)
     ap.add_argument("--window", type=int, default=16, help="last steps of each replay that are timed")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "batched_bench.json"))
@@ -41,15 +46,14 @@ def main() -> int:
         print("torch_batched_bench: needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import production_config
+    from chip_smoke import path_config, production_config, robot_sequences
     from locus_tpu_torch import config as cfg_mod, pipeline, runner
-    from locus_tpu_torch.io.dataset import make_tunnel_sequence
+    from locus_tpu_torch.io import dataset
     from locus_tpu_torch.metrics import RateReport
 
     dev = torch.device("cuda")
-    cfg = production_config(cfg_mod)
-    seqs = [make_tunnel_sequence(num_scans=args.scans, azimuth_steps=1800, step=0.30 + 0.05 * b, seed=b)
-            for b in range(args.robots)]
+    cfg = path_config(production_config(cfg_mod), args.config)
+    seqs = robot_sequences(dataset, args.config, num_scans=args.scans, robots=args.robots)
     packed = [runner.pack_sequence(s, cfg, device=dev) for s in seqs]
     stacked = runner.stack_packed(packed)
     poses0 = [s.gt_poses[0] for s in seqs]
@@ -58,7 +62,7 @@ def main() -> int:
     def run(mode):
         report = RateReport()
         if mode == "single":
-            state = pipeline.init_state(cfg, torch.as_tensor(poses0[0], dtype=torch.float32), device=dev)
+            state = pipeline.init_state_from_config(cfg, torch.as_tensor(poses0[0], dtype=torch.float32), device=dev)
             single(state, packed[0], report=report)
         else:
             batched(pipeline.init_states(cfg, poses0, device=dev), stacked, report=report)
@@ -76,7 +80,7 @@ def main() -> int:
     ratios = [r["tick_over_scan"] for r in rounds]
     result = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "robots": args.robots,
-        "scans": args.scans, "window": args.window, "rounds": rounds,
+        "config": args.config, "scans": args.scans, "window": args.window, "rounds": rounds,
         "tick_over_scan_median": float(np.median(ratios)),
         "tick_over_scan_min_max": [min(ratios), max(ratios)],
         "robot_scans_per_scan_median": float(np.median([args.robots / x for x in ratios])),

@@ -29,9 +29,11 @@ merger's heartbeats and health, the merge of the Husky's three lidars
 parsed up front from the phase's bag (written under chiprun_out/).
 
 With --robots B > 1 it profiles the batched step instead: B robots, each
-on its own tunnel (chip_smoke.py's batched phase: steps 0.30, 0.35, ...,
-seeds 0, 1, ...), one batched step per tick; every "per scan" figure is
-then per tick of all B robots.
+on its own sequence (chip_smoke.robot_sequences: steps 0.30, 0.35, ...,
+seeds 0, 1, ...; with --config ndt|features|voxel_hash that path's
+configuration and robots, as chip_smoke.py's batched path phases),
+one batched step per tick; every "per scan" figure is then per tick of
+all B robots.
 
 Imports neither JAX nor locus_tpu; needs a CUDA device.
 """
@@ -134,11 +136,11 @@ def main() -> int:
     ap.add_argument("--traced", type=int, default=8, help="scans traced at the end of the replay")
     ap.add_argument("--robots", type=int, default=1, help="robots of the batched step (1: the single step)")
     ap.add_argument("--config", choices=("gicp", "ndt", "features", "voxel_hash", "live", "husky"), default="gicp",
-                    help="the single-card path (the batched step runs gicp only)")
+                    help="the single-card path (with --robots: gicp, ndt, features or voxel_hash)")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "stage_profile.json"))
     args = ap.parse_args()
-    if args.robots > 1 and args.config != "gicp":
-        ap.error("the batched step runs the gicp path only (ROADMAP A15b)")
+    if args.robots > 1 and args.config in ("live", "husky"):
+        ap.error(f"--config {args.config} serves one robot; --robots takes gicp, ndt, features or voxel_hash")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -147,7 +149,7 @@ def main() -> int:
         print("torch_stage_profile: needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import path_config, path_sequence, production_config
+    from chip_smoke import path_config, path_sequence, production_config, robot_sequences
     from locus_tpu_torch import config as cfg_mod, pipeline, runner
     from locus_tpu_torch.io import dataset
     from locus_tpu_torch.io.dataset import make_tunnel_sequence
@@ -171,8 +173,7 @@ def main() -> int:
             )
             inputs = [runner.scan_inputs(seq, i, cfg, dev) for i in range(args.scans)]
         else:
-            seqs = [make_tunnel_sequence(num_scans=args.scans, azimuth_steps=1800, step=0.30 + 0.05 * b, seed=b)
-                    for b in range(args.robots)]
+            seqs = robot_sequences(dataset, args.config, num_scans=args.scans, robots=args.robots)
             state = pipeline.init_states(cfg, [s.gt_poses[0] for s in seqs], device=dev)
             inputs = [
                 tuple(torch.stack(x) for x in zip(*(runner.scan_inputs(s, i, cfg, dev) for s in seqs)))
