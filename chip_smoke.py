@@ -95,14 +95,42 @@ Phases, each printing one JSON line:
                tick by kernel; B3 must launch on every path, B4 on ndt and
                voxel_hash and not on features, no single-member kernel
                anywhere
+13. sharded    the production replay of phase 5 with its map split over 2
+               ranks (tools/torch_dist_smoke.py processes on this card, a
+               (1, 2) mesh, collectives through gloo: NCCL takes one rank
+               a device) through runner.make_scan_replay(mesh=), each
+               rank's launch counts reset just before and read just after:
+               poses against phase 5's (within 1e-4 m; the gap reported,
+               0.0 expected), map sizes equal on every scan, scans/s over
+               the last 32 scans and launches per scan on each rank (B2
+               map on every rank's 65536-slot shard); then killed after
+               24 scans (each rank saves its shards and exits), resumed
+               by fresh ranks for the other 24, bit for bit the
+               uninterrupted run, with the gathers' ms a scan traced
+14. sharded_batched
+               phase 7's 4 robots through runner.make_batched_replay(mesh=)
+               on 4 ranks, a (2, 2) mesh: each data row loads and packs only
+               its own 2 robots, each robot's map split over the row's 2
+               ranks; each robot against its phase-7 single replay (within
+               1e-4 m), B3 and B4 on every rank
+15. sharded_live
+               phase 9's circuit served by live.LiveSession(mesh=) on 2
+               ranks, the pose-graph backend on each closing loops with
+               optimize(mesh=) and pushing them back through each shard's
+               re-anchor: poses up to the first push-back against phase
+               9's (within 1e-4 m), ATE (0.05 m), closures, p50 and max
+               latency
+A launch of ranks that outlasts its deadline is ended and fails its phase.
 Then the `kernels` summary line (launches summed over every path, the
 batched paths' on the B3/B4 rows (B3 map on the voxel-hash operand on
-its own row); the `_husky` rows carry the husky phase's), the
+its own row); the `_husky` rows carry the husky phase's, the `_shard`
+rows the B2/B3 map launches of the sharded phases), the
 nvidia-smi line, and the final `{"ok": true, ...}` line. The full record also goes to
 chiprun_out/chip_smoke.json.
 """
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -171,6 +199,16 @@ HUSKY_T0, HUSKY_JITTER_S, HUSKY_SLOP_S, LIDAR_TIMEOUT_S = 100.0, 0.01, 0.05, 0.1
 HUSKY_DEAD_LIDAR, HUSKY_DEAD_SCANS, HUSKY_ALIVE_BY = 1, (16, 23), 26
 HUSKY_ODOM_TOPIC = "/husky_velocity_controller/odom"
 HUSKY_SUFFIX = "_husky"    # the kernels' rows at the husky path's inputs
+# The sharded phases (13-15): tools/torch_dist_smoke.py as ranks on this
+# one card, their collectives through gloo. sharded: phase 5's replay with
+# the map over SHARDED_RANKS ranks, killed after SHARDED_RESUME_AT scans
+# and resumed; sharded_batched: phase 7's robots on a (2, 2) mesh;
+# sharded_live: phase 9's circuit served on SHARDED_RANKS ranks.
+SHARDED_RANKS, SHARDED_BATCHED_RANKS, SHARDED_RESUME_AT = 2, 4, 24
+RANK_TIMEOUT_S = 420          # a launch of ranks is ended after this
+SHARDED_LIMIT_M = 1e-4        # sharded against single (JAX's bound; 0.0 expected)
+SHARD_SUFFIX = "_shard"       # the B2/B3 map rows at one shard's operand
+RANK_INPUTS = "rank_inputs"   # the ranks' sequences, references and checkpoints, deleted after the phases
 
 
 def emit(record: dict) -> None:
@@ -774,6 +812,146 @@ def husky_problems(record):
     return problems
 
 
+def run_ranks(workdir, name, world, *args, timeout=RANK_TIMEOUT_S):
+    """tools/torch_dist_smoke.py as `world` ranks on the card, collectives
+    through gloo; rank 0's record (every rank's under "ranks") with the
+    seconds the launch took. A rank that fails or a launch past `timeout`
+    ends every rank and raises."""
+    from locus_tpu_torch.parallel.distributed import spawn_ranks
+
+    out = workdir / name
+    out.mkdir(parents=True, exist_ok=True)
+    cmd = [sys.executable, str(ROOT / "tools" / "torch_dist_smoke.py"), *map(str, args), "--device", "cuda",
+           "--backend", "gloo", "--out", str(out), "--timeout", str(timeout)]
+    t0 = time.perf_counter()
+    results = spawn_ranks(cmd, world, out / "ranks", timeout, cwd=ROOT)
+    failed = [f"rank {r} exited {rc}: {err[-3000:]}" for r, (rc, _, err) in enumerate(results) if rc != 0]
+    if failed:
+        raise RuntimeError(f"{name}: " + "; ".join(failed))
+    rec = json.loads(results[0][1].strip().splitlines()[-1])
+    rec["launch_s"] = time.perf_counter() - t0
+    return rec
+
+
+def per_rank(rec, *keys):
+    """{key: [each rank's value]} of a ranks record."""
+    return {k: [r[k] for r in rec["ranks"]] for k in keys}
+
+
+def run_sharded(np, workdir, seq, poses, sizes, cfg):
+    """Phase 13 on `seq` against phase 5's `poses` and map `sizes`. The
+    ranks' inputs and checkpoints go to `workdir`/RANK_INPUTS."""
+    seq_path, ref_path = workdir / RANK_INPUTS / "production_seq.npz", workdir / RANK_INPUTS / "production_ref.npz"
+    seq.save(str(seq_path))
+    np.savez(ref_path, poses=poses, sizes=np.asarray(sizes))
+    common = ("--profile", "production", "--seq", seq_path, "--window", RATE_WINDOW)
+    run = run_ranks(workdir, "sharded", SHARDED_RANKS, "--mode", "pipeline", "--ref", ref_path, *common)
+    ck = workdir / RANK_INPUTS / "sharded_ck"
+    saved = run_ranks(workdir, "sharded_save", SHARDED_RANKS, "--mode", "ckpt_save", "--ckpt", ck,
+                      "--resume-at", SHARDED_RESUME_AT, *common)
+    resumed = run_ranks(workdir, "sharded_resume", SHARDED_RANKS, "--mode", "ckpt_resume", "--ckpt", ck,
+                        "--resume-at", SHARDED_RESUME_AT, "--ref", workdir / "sharded" / "pipeline_poses.npz",
+                        "--trace-collectives", *common)
+    return {
+        "phase": "sharded", "scans": len(seq), "mesh": run["mesh"], "backend": run["backend"],
+        "device_name": run.get("device_name"), "map_capacity": cfg.mapper.map_capacity,
+        "max_translation_vs_single_m": max(r["max_translation_err_m"] for r in run["ranks"]),
+        "max_pose_entry_vs_single": run["max_pose_err"], "bit_equal_vs_single": run["bit_equal"],
+        "map_sizes_equal": run["map_sizes_equal"], "final_map_size": run["final_map_size"],
+        **per_rank(run, "scans_per_s_last", "ms_p50_last", "ms_max_last", "wall_s", "map_operand_rows",
+                   "local_map_points", "launches", "launches_per_scan"),
+        "rate_window": RATE_WINDOW, "launch_s": run["launch_s"],
+        "resume": {"at": SHARDED_RESUME_AT, "saved": saved["wrote"], "resumed_scans": resumed["resumed_scans"],
+                   "bit_equal": resumed["bit_equal"], "max_pose_entry": resumed["max_pose_err"],
+                   "map_sizes_equal": resumed["map_sizes_equal"],
+                   "launch_s": [saved["launch_s"], resumed["launch_s"]]},
+        "traced": per_rank(resumed, "collective_ms_per_step", "collectives_per_step", "ms_p50_last"),
+    }
+
+
+def sharded_problems(record, cap):
+    problems = []
+    if record["max_translation_vs_single_m"] > SHARDED_LIMIT_M or not record["map_sizes_equal"]:
+        problems.append(f"sharded: {record['max_translation_vs_single_m']} m from the single replay, "
+                        f"map sizes equal {record['map_sizes_equal']}")
+    if any(n != cap // SHARDED_RANKS for n in record["map_operand_rows"]):
+        problems.append(f"sharded: map operands of {record['map_operand_rows']} rows, not {cap // SHARDED_RANKS}")
+    for r, launches in enumerate(record["launches"]):
+        if min(launches[k] for k in SINGLE_PATH) <= 0 or any(launches[k] for k in BATCHED_PATH):
+            problems.append(f"sharded: rank {r} did not launch {SINGLE_PATH} alone: {launches}")
+    if not record["resume"]["bit_equal"]:
+        problems.append("sharded: the ranks resumed from their checkpoints did not repeat the run bit for bit")
+    return problems
+
+
+def run_sharded_batched(np, workdir, robot_seqs, single_poses):
+    """Phase 14: the robots of phase 7 on a (2, 2) mesh against their
+    single replays `single_poses` (B of (T, 4, 4))."""
+    paths = []
+    for b, s in enumerate(robot_seqs):
+        paths.append(str(workdir / RANK_INPUTS / f"robot{b}.npz"))
+        s.save(paths[-1])
+    ref = workdir / RANK_INPUTS / "robots_ref.npz"
+    np.savez(ref, poses=np.stack(single_poses, axis=1))
+    run = run_ranks(workdir, "sharded_batched", SHARDED_BATCHED_RANKS, "--mode", "dp", "--map-parallel",
+                    SHARDED_RANKS, "--profile", "production", "--seq", ",".join(paths), "--ref", ref,
+                    "--window", TICK_WINDOW)
+    return {
+        "phase": "sharded_batched", "robots": len(robot_seqs), "mesh": run["mesh"], "backend": run["backend"],
+        "owned_rows": run["owned_rows"], "max_pose_entry_vs_single": run["max_pose_err"],
+        "bit_equal_vs_single": run["bit_equal"],
+        "max_translation_vs_single_m": max(r["max_translation_err_m"] for r in run["ranks"]),
+        **per_rank(run, "scans_per_s_last", "ms_p50_last", "ms_max_last", "wall_s", "map_operand_rows",
+                   "launches", "launches_per_tick", "final_map_sizes"),
+        "tick_window": TICK_WINDOW, "launch_s": run["launch_s"],
+    }
+
+
+def sharded_batched_problems(record, cap):
+    problems = []
+    if record["max_translation_vs_single_m"] > SHARDED_LIMIT_M:
+        problems.append(f"sharded_batched: robots {record['max_translation_vs_single_m']} m from their single replays")
+    if any(n != cap // SHARDED_RANKS for n in record["map_operand_rows"]):
+        problems.append(f"sharded_batched: map operands of {record['map_operand_rows']} rows")
+    for r, launches in enumerate(record["launches"]):
+        if min(launches[k] for k in BATCHED_PATH) <= 0 or any(launches[k] for k in SINGLE_PATH):
+            problems.append(f"sharded_batched: rank {r} did not launch {BATCHED_PATH} alone: {launches}")
+    return problems
+
+
+def run_sharded_live(np, workdir, circuit, live_poses):
+    """Phase 15: the live circuit served on SHARDED_RANKS ranks against
+    phase 9's poses."""
+    seq_path, ref = workdir / RANK_INPUTS / "circuit.npz", workdir / RANK_INPUTS / "live_ref.npz"
+    circuit.save(str(seq_path))
+    np.savez(ref, poses=live_poses)
+    run = run_ranks(workdir, "sharded_live", SHARDED_RANKS, "--mode", "live", "--closures", "--profile",
+                    "production", "--seq", seq_path, "--ref", ref)
+    return {
+        "phase": "sharded_live", "scans": len(circuit), "mesh": run["mesh"], "backend": run["backend"],
+        **{k: run[k] for k in ("closures_pushed_back", "ate_m", "max_translation_err_before_first_closure_m",
+                               "max_pose_err_before_first_closure", "max_translation_err_m", "ranks_agree")},
+        **per_rank(run, "push_back_scans", "loops_found", "latency_ms_p50", "latency_ms_max", "slowest_scans",
+                   "launches", "launches_per_scan"),
+        "launch_s": run["launch_s"],
+    }
+
+
+def sharded_live_problems(record):
+    problems = []
+    if record["max_translation_err_before_first_closure_m"] > SHARDED_LIMIT_M:
+        problems.append(f"sharded_live: {record['max_translation_err_before_first_closure_m']} m from phase 9 "
+                        "before the first closure")
+    if not math.isfinite(record["ate_m"]) or record["ate_m"] > ATE_LIMIT_M:
+        problems.append(f"sharded_live: ATE {record['ate_m']} m exceeds {ATE_LIMIT_M} m")
+    if record["closures_pushed_back"] < 1 or not record["ranks_agree"]:
+        problems.append(f"sharded_live: {record['closures_pushed_back']} closures, ranks agree {record['ranks_agree']}")
+    for r, launches in enumerate(record["launches"]):
+        if min(launches[k] for k in SINGLE_PATH) <= 0:
+            problems.append(f"sharded_live: rank {r} did not launch {SINGLE_PATH}: {launches}")
+    return problems
+
+
 def device_time_ms(torch, fn, reps=20, warmup=3):
     """Median device time of fn() in ms: CUDA events around each call,
     queued behind a sleep kernel so host enqueue time is not measured."""
@@ -1165,8 +1343,10 @@ def main() -> int:
             capture_output=True, text=True, timeout=60,
         ).stdout.strip().splitlines()
         smi_line = smi[0] if smi else "nvidia-smi: no output"
+        mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                              capture_output=True, text=True, timeout=60).stdout.strip()
         record["device"] = {
-            "phase": "device", "name": torch.cuda.get_device_name(0), "nvidia_smi": smi_line,
+            "phase": "device", "name": torch.cuda.get_device_name(0), "nvidia_smi": smi_line, "compute_mode": mode,
             "count": torch.cuda.device_count(), "torch": torch.__version__, "cuda": torch.version.cuda,
         }
         emit(record["device"])
@@ -1251,6 +1431,24 @@ def main() -> int:
         _, bt, radius, args, query, target = nn_cases(torch, tnn, vh_cfg, pcbv, bvh_state, "_batched")[1]
         ok_bvh, res_bvh = check_nn(torch, tnn, build, BATCHED_VOXEL_HASH_MAP, bt, radius, args, query, target)
         results.append(res_bvh)
+        # B2 map on shard 0 of the sharded phase's map (65536 slots), B3 map
+        # on a data row's 2 robots at shard 0 of theirs (phases 13-14)
+        from locus_tpu_torch.core.cloud import PointCloud
+        from locus_tpu_torch.parallel.mesh import Mesh, shard_state
+
+        shard0 = Mesh(1, SHARDED_RANKS, 0, dev, "gloo")
+        cap = cfg.mapper.map_capacity
+        st = ref_state._replace(map=shard_state(shard0, ref_state.map, cap, at_map_root=True))
+        _, bt, radius, args, query, target = nn_cases(torch, tnn, cfg, pc, st, "")[1]
+        ok_sh, res_sh = check_nn(torch, tnn, build, "nn_visits_map" + SHARD_SUFFIX, bt, radius, args, query, target)
+        results.append(res_sh)
+        row = pipeline.stack_states([pipeline.member(ref_states, b) for b in range(ROBOTS // 2)])
+        row = row._replace(map=shard_state(shard0, row.map, cap, batched=True, at_map_root=True))
+        pcr = PointCloud(*(x[: ROBOTS // 2] for x in pcb))
+        _, bt, radius, args, query, target = nn_cases(torch, tnn, cfg, pcr, row, "_batched")[1]
+        ok_bsh, res_bsh = check_nn(torch, tnn, build, "nn_visits_batched_map" + SHARD_SUFFIX, bt, radius, args,
+                                   query, target)
+        results.append(res_bsh)
         record["kernels"] = {
             "phase": "kernels", "checks": results, "map_points": int(ref_state.map.cloud.mask.sum()),
             "voxel_hash_map_points": int(vh_state.map.cloud.mask.sum()),
@@ -1259,7 +1457,7 @@ def main() -> int:
             "batched_leaves": ref_states.voxel_leaf.tolist(),
         }
         emit(record["kernels"])
-        if not (ok_single and ok_batched and ok_vh and ok_bvh):
+        if not (ok_single and ok_batched and ok_vh and ok_bvh and ok_sh and ok_bsh):
             raise RuntimeError("a kernel disagrees with its plain version")
 
         # 5. pipeline through the kernels, launch counts of this run only
@@ -1370,11 +1568,13 @@ def main() -> int:
         scfg = serving_config(cfg)
         workdir = ROOT / "chiprun_out" / "chip_smoke_work"
         workdir.mkdir(parents=True, exist_ok=True)
+        circuits, served = {}, {}
         for name, azimuth, run in (("live", LIVE_AZIMUTH, serve_live), ("slam", SLAM_AZIMUTH, run_slam)):
             t0 = time.perf_counter()
-            circuit = circuit_sequence(CIRCUIT_SCANS, azimuth)
+            circuits[name] = circuit = circuit_sequence(CIRCUIT_SCANS, azimuth)
             data_s = time.perf_counter() - t0
-            record[name] = run(torch, np, scfg, circuit, dev, workdir)[0] | {
+            record[name], served[name] = run(torch, np, scfg, circuit, dev, workdir)
+            record[name] |= {
                 "azimuth_steps": azimuth, "step_m": CIRCUIT_STEP, "laps": CIRCUIT_LAPS, "seed": CIRCUIT_SEED,
                 "backend": LOOP_BACKEND | LOOP_REGISTRATION, "data_seconds": data_s,
             }
@@ -1408,6 +1608,24 @@ def main() -> int:
             problems += batched_path_problems(rec, expected)
         if problems:
             raise RuntimeError("; ".join(problems))
+
+        # 13-15. the sharded deployments as ranks on this card; every phase
+        # runs, then any phase's failure fails the script
+        cap = cfg.mapper.map_capacity
+        (workdir / RANK_INPUTS).mkdir(exist_ok=True)
+        try:
+            record["sharded"] = run_sharded(np, workdir, seq, poses, [o["map_size"] for o in outputs], cfg)
+            emit(record["sharded"])
+            record["sharded_batched"] = run_sharded_batched(np, workdir, robot_seqs, single_poses)
+            emit(record["sharded_batched"])
+            record["sharded_live"] = run_sharded_live(np, workdir, circuits["live"], served["live"])
+            emit(record["sharded_live"])
+        finally:
+            shutil.rmtree(workdir / RANK_INPUTS, ignore_errors=True)
+        problems = (sharded_problems(record["sharded"], cap) + sharded_batched_problems(record["sharded_batched"], cap)
+                    + sharded_live_problems(record["sharded_live"]))
+        if problems:
+            raise RuntimeError("; ".join(problems))
     except Exception:
         traceback.print_exc()
         emit({"phase": "failed", "completed": list(record)})
@@ -1431,6 +1649,16 @@ def main() -> int:
     counts |= {f"moments_visits{HUSKY_SUFFIX}": husky["moments_visits"],
                f"nn_visits{HUSKY_SUFFIX}_scan": husky["nn_visits_scan"],
                f"nn_visits{HUSKY_SUFFIX}_map": husky["nn_visits_map"]}
+    # the sharded phases, summed over their ranks: B1 and B2 scan on the
+    # single rows, B3 scan and B4 on the batched rows, the map 1-NN on the
+    # `_shard` rows (one shard's operand)
+    for phase, rows, shard_row in (("sharded", SINGLE_PATH, "nn_visits_map"),
+                                   ("sharded_live", SINGLE_PATH, "nn_visits_map"),
+                                   ("sharded_batched", BATCHED_PATH, "nn_visits_batched_map")):
+        for launches in record[phase]["launches"]:
+            for k in rows:
+                key = k + SHARD_SUFFIX if k == shard_row else k
+                counts[key] = counts.get(key, 0) + launches[k]
     summary = [
         {k: v for k, v in r.items() if k in (
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",

@@ -31,6 +31,7 @@ from locus_tpu_torch.config import RegistrationConfig
 from locus_tpu_torch.core.cloud import PointCloud
 from locus_tpu_torch.ops.dispatch import resolve_device
 from locus_tpu_torch.parallel import posegraph as pg
+from locus_tpu_torch.parallel.mesh import require_mesh
 from locus_tpu_torch.registration.gicp import gicp_register
 
 # Rows of the correction table handed to the map's reanchor (padded with
@@ -160,15 +161,20 @@ class PoseGraphBackend:
     def optimize(self, iterations: int = 10, mesh=None) -> np.ndarray:
         """Optimise every keyframe pose over the bucket-padded graph;
         returns the (K,4,4) corrected poses and updates the keyframes and
-        `last_corrections`. `mesh` (factors over a mesh) is ROADMAP A16."""
+        `last_corrections`. `mesh`: the factors split over its "map" axis
+        (`posegraph.optimize_sharded`; every rank of the mesh holds the same
+        keyframes and factors and calls this together), the factor bucket
+        padded to a multiple of the shards."""
         if mesh is not None:
-            raise NotImplementedError("PoseGraphBackend.optimize(mesh=): factors over a mesh are ROADMAP A16")
+            require_mesh(mesh)
         K = len(self.keyframes)
         if K < 2 or not self.factors:
             return np.stack([k.pose for k in self.keyframes]) if K else np.zeros((0, 4, 4))
         old = np.stack([k.pose for k in self.keyframes])
         F = len(self.factors)
         nk, nf = -(-K // POSE_BUCKET) * POSE_BUCKET, -(-F // FACTOR_BUCKET) * FACTOR_BUCKET
+        if mesh is not None:
+            nf = -(-nf // mesh.shape["map"]) * mesh.shape["map"]
         eye4, eye6 = np.eye(4, dtype=np.float32), np.eye(6, dtype=np.float32)
         zero = np.zeros((), np.int64)
         g = pg.make_graph(
@@ -180,7 +186,8 @@ class PoseGraphBackend:
             factor_mask=_padded(np.ones(F, bool), nf, np.zeros((), bool)),
             device=self.device,
         )
-        out = pg.optimize(g, iterations=iterations).poses.cpu().numpy().astype(np.float64)[:K]
+        solved = pg.optimize(g, iterations=iterations) if mesh is None else pg.optimize_sharded(mesh, g, iterations)
+        out = solved.poses.cpu().numpy().astype(np.float64)[:K]
         self.solves += 1
         self.last_corrections = np.einsum("kij,kjl->kil", out, np.linalg.inv(old)).astype(np.float32)
         for k, kf in enumerate(self.keyframes):

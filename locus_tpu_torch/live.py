@@ -7,7 +7,11 @@ native prefetcher), queues the sensor samples that arrive between scans,
 runs the live step (one upload, one fetch), publishes through the
 FixedRatePublisher, logs diagnostics, checkpoints periodically, and takes
 loop-closure corrections back from a pose-graph backend
-(`apply_loop_closure`).
+(`apply_loop_closure`). With `mesh=` it serves as one rank of a process
+mesh with the map split over the mesh's "map" axis: every rank feeds the
+same scans and samples, keeps its shard of the map, and returns the same
+poses; closures re-anchor each shard where it lies, checkpoints are one
+file a rank (`checkpoint.save_state_sharded`).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from locus_tpu_torch import diagnostics, localization, pipeline
 from locus_tpu_torch.backend import CORRECTIONS_BUCKET
 from locus_tpu_torch.config import LocusConfig, _update_dataclass
 from locus_tpu_torch.ops.dispatch import resolve_device
+from locus_tpu_torch.parallel.mesh import gather_state, shard_state
 from locus_tpu_torch.publisher import FixedRatePublisher
 from locus_tpu_torch.runner import (
     make_live_step,
@@ -78,16 +83,17 @@ class LiveSession:
     # map_sink(scan_count, map_state) on every cfg.map_publishment_meters-th
     # keyframe insertion (mapper_->PublishMap, Locus.cc:536-543)
     map_sink: Optional[Callable] = None
+    # serve as one rank of a parallel.mesh.Mesh, the map split over its
+    # "map" axis (the big-map live-localization deployment); every rank of
+    # the mesh runs its own session on the same inputs
     mesh: Optional[object] = None
     device: Optional[str] = None
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError("LiveSession(mesh=): the sharded map is ROADMAP A16")
         self.device = resolve_device(self.device)
-        self._rstep, self._aux_len = make_live_step(self.cfg, self.imu_window, self.odom_window)
+        self._rstep, self._aux_len = make_live_step(self.cfg, self.imu_window, self.odom_window, mesh=self.mesh)
         pose = None if self.initial_pose is None else torch.as_tensor(np.asarray(self.initial_pose, np.float32))
-        self.state = pipeline.init_state_from_config(self.cfg, initial_pose=pose, device=self.device)
+        self.state = self._shard(pipeline.init_state_from_config(self.cfg, initial_pose=pose, device=self.device))
         self._imu_queue: list = []
         self._odom_queue: list = []
         self._scan_count = 0
@@ -145,7 +151,7 @@ class LiveSession:
         if out.keyframe_inserted:
             self._keyframe_count += 1
             if self.map_sink is not None and self._keyframe_count % max(self.cfg.map_publishment_meters, 1) == 0:
-                self.map_sink(self._scan_count, self.state.map)
+                self.map_sink(self._scan_count, self._whole_map())
         if self.publisher is not None:
             # fire the ticks due since the previous scan, then install the
             # new pose
@@ -153,7 +159,10 @@ class LiveSession:
             self.publisher.on_scan_pose(stamp, pose, out.covariance)
         self.diag.add(diagnostics.from_step_output(stamp, out, scan_count=self._scan_count))
         if self.checkpoint_path and self._scan_count % self.checkpoint_every == 0:
-            ckpt_mod.save_state(self.checkpoint_path, self.state)
+            if self.mesh is None:
+                ckpt_mod.save_state(self.checkpoint_path, self.state)
+            else:
+                ckpt_mod.save_state_sharded(self.checkpoint_path, self.state, self.mesh, self.cfg.mapper.map_capacity)
         if self.debug_dump_dir and self._scan_count % self.debug_dump_every == 0:
             self._dump(packed_xyz[mask])
         return pose, out
@@ -162,9 +171,24 @@ class LiveSession:
         from locus_tpu_torch.io import pcd
         from locus_tpu_torch.mapping.keyframe_map import snapshot_to_pcd
 
+        whole = self._whole_map()
+        if self.mesh is not None and self.mesh.rank != 0:
+            return      # every rank gathers the map; rank 0 writes it
         os.makedirs(self.debug_dump_dir, exist_ok=True)
         pcd.write_pcd(os.path.join(self.debug_dump_dir, f"scan_{self._scan_count:06d}.pcd"), scan_xyz)
-        snapshot_to_pcd(self.state.map, os.path.join(self.debug_dump_dir, f"map_{self._scan_count:06d}.pcd"))
+        snapshot_to_pcd(whole, os.path.join(self.debug_dump_dir, f"map_{self._scan_count:06d}.pcd"))
+
+    def _shard(self, state):
+        """This rank's shards of a whole state (the state itself unsharded)."""
+        if self.mesh is None:
+            return state
+        return shard_state(self.mesh, state, self.cfg.mapper.map_capacity)
+
+    def _whole_map(self):
+        """The whole map (sharded: gathered from every rank, a collective)."""
+        if self.mesh is None:
+            return self.state.map
+        return gather_state(self.mesh, self.state.map, self.cfg.mapper.map_capacity, at_map_root=True)
 
     # -- runtime reconfiguration -------------------------------------------
     # The reference changes parameters of a running system three ways:
@@ -203,7 +227,7 @@ class LiveSession:
                     f"({old!r} -> {new!r}); start a new session (optionally resumed from a checkpoint)"
                 )
         self.cfg = new_cfg
-        self._rstep, self._aux_len = make_live_step(new_cfg, self.imu_window, self.odom_window)
+        self._rstep, self._aux_len = make_live_step(new_cfg, self.imu_window, self.odom_window, mesh=self.mesh)
 
     def set_voxel_leaf(self, leaf: float):
         """Set the input-voxelisation leaf in the device state (the
@@ -222,7 +246,9 @@ class LiveSession:
         `run_sequence(backend=)` contract): the integrated estimate reset
         to `corrected_pose`, the owned map re-anchored by the per-keyframe
         `corrections` (K,4,4), padded with identities to a multiple of
-        CORRECTIONS_BUCKET rows, and the keyframe policy's anchor moved."""
+        CORRECTIONS_BUCKET rows, and the keyframe policy's anchor moved.
+        Sharded, each rank re-anchors its own shard (the corrections are
+        replicated; no collective)."""
         corr = np.asarray(corrections, np.float32)
         pad = (-corr.shape[0]) % CORRECTIONS_BUCKET
         if pad:
@@ -243,9 +269,13 @@ class LiveSession:
     # -- lifecycle ---------------------------------------------------------
     def resume(self, path: str):
         """Restore a checkpointed session (elastic recovery); the scan
-        counter continues from the checkpoint's."""
-        template = pipeline.init_state(self.cfg, device=self.device)
-        self.state = ckpt_mod.load_state(path, template)
+        counter continues from the checkpoint's. Sharded, `path` is the
+        prefix the session saved under, and each rank reads its own file."""
+        template = self._shard(pipeline.init_state(self.cfg, device=self.device))
+        if self.mesh is None:
+            self.state = ckpt_mod.load_state(path, template)
+        else:
+            self.state = ckpt_mod.load_state_sharded(path, template, self.mesh, self.cfg.mapper.map_capacity)
         self._scan_count = int(self.state.stats.scan_count)
 
     def run(self, scan_source: Iterator, max_scans: Optional[int] = None):

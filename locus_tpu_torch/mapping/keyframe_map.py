@@ -11,8 +11,16 @@ boxes, both maintained incrementally.
 Inserts and refreshes run every scan as masked passes (`enabled`): a
 disabled call leaves the state bit-identical. A loop closure moves the
 stored points by their keyframe's correction (`reanchor`), which rebuilds
-the operand and the chunk boxes from the moved points. This slice is the unsharded
-map; the sharded map comes with ROADMAP item A16.
+the operand and the chunk boxes from the moved points.
+
+The point axis can be split over the "map" axis of a process mesh (the
+sharded deployments of `runner` and `live`): inside
+`dispatch.shard_context` every map leaf this module sees is this rank's
+shard, and the cross-shard results come from rank-ordered gathers: the
+map 1-NN and the ANN merge the shards' winners (`sharded_map.merge_winners`,
+least score, ties to the lowest shard: the whole map's winner), an insert
+writes the slots its shard owns, and `map_size` sums the shards' counts.
+`refresh_msw` and `reanchor` need nothing from other shards.
 
 Every function also takes a state with one leading batch dimension (the
 batched replay): each member has its own store, ring pointer and restart,
@@ -26,17 +34,21 @@ from typing import NamedTuple
 import torch
 
 from locus_tpu_torch.config import MapperConfig
-from locus_tpu_torch.core.cloud import PAD_COORD, PointCloud, take_rows
+from locus_tpu_torch.core.cloud import PAD_COORD, PointCloud, put_rows, take_rows
 from locus_tpu_torch.geometry import se3
-from locus_tpu_torch.ops.dispatch import resolve_device
+from locus_tpu_torch.ops.dispatch import active_shard, resolve_device
 from locus_tpu_torch.ops.kernels.nn import (
     BT,
     build_nn_target,
     chunk_boxes,
     nearest_bounded_pre,
+    nearest_bounded_scores,
     sq_norm3,
     update_chunk_boxes,
+    update_nn_target,
 )
+from locus_tpu_torch.parallel import sharded_map
+from locus_tpu_torch.parallel.distributed import gather_ranked
 
 
 class MapState(NamedTuple):
@@ -70,9 +82,15 @@ def init_map(cfg: MapperConfig, device=None) -> MapState:
 
 def _map_nearest(state: MapState, query_xyz: torch.Tensor, radius: float = 2.0):
     """Bounded 1-NN into the map store; hits beyond `radius` come back as
-    d2 = +inf."""
-    return nearest_bounded_pre(
-        query_xyz, state.nn_aug, state.cloud.xyz, state.chunk_min, state.chunk_max, radius, bt=BT
+    d2 = +inf. Sharded, the shards' winners merge and the index is a row
+    of the whole map."""
+    mesh = active_shard()
+    if mesh is None:
+        return nearest_bounded_pre(
+            query_xyz, state.nn_aug, state.cloud.xyz, state.chunk_min, state.chunk_max, radius, bt=BT
+        )
+    return sharded_map.sharded_nearest_pallas(
+        mesh, query_xyz, state.cloud.xyz, state.nn_aug, state.chunk_min, state.chunk_max, radius
     )
 
 
@@ -100,7 +118,9 @@ def insert_keyframe(
 
     kf = keyframe.with_mask(novel).compact()       # novel points to the front
     k = kf.capacity
-    cap = state.cloud.capacity
+    mesh = active_shard()
+    local_cap = state.cloud.capacity
+    cap = local_cap * (1 if mesh is None else mesh.shape["map"])   # the whole ring
     if k > cap:
         raise ValueError(f"keyframe capacity {k} exceeds the map capacity {cap}")
     dev = kf.xyz.device
@@ -114,6 +134,8 @@ def insert_keyframe(
         new_ptr = torch.where(enabled, new_ptr, state.write_ptr)
         kf_inc = enabled.to(torch.int32)
     slot = ptr.to(torch.int64)[..., None] + torch.arange(k, device=dev)   # (..., k)
+    if mesh is not None:
+        return _insert_owned(state, kf, winmask, slot, new_ptr, kf_inc, mesh.map_index * local_cap)
 
     def merge0(arr, newvals):
         """Read-modify-write of each member's [ptr, ptr + k) window of
@@ -146,6 +168,35 @@ def insert_keyframe(
         chunk_min=c_min,
         chunk_max=c_max,
         kf_index=kf_index,
+    )
+
+
+def _insert_owned(state: MapState, kf: PointCloud, winmask, slot, new_ptr, kf_inc, offset: int) -> MapState:
+    """The sharded insert: the ring's window [ptr, ptr + k) lies across the
+    shards, so each shard scatters the window's slots it owns (whole-ring
+    slot s is row s - offset here) and leaves the others to their owners.
+    The single path's windowed read-modify-write writes the same rows with
+    the same values."""
+    local_cap = state.cloud.capacity
+    mine = winmask & (slot >= offset) & (slot < offset + local_cap)
+    rows = torch.where(mine, slot - offset, local_cap)           # local_cap: dropped
+    cloud = state.cloud
+    new_cloud = PointCloud(
+        put_rows(cloud.xyz, rows, kf.xyz),
+        put_rows(cloud.normals, rows, kf.normals),
+        put_rows(cloud.intensity, rows, kf.intensity),
+        put_rows(cloud.mask, rows, torch.ones((), dtype=torch.bool, device=rows.device)),
+    )
+    c_min, c_max = update_chunk_boxes(state.chunk_min, state.chunk_max, rows, kf.xyz, mine)
+    return MapState(
+        cloud=new_cloud,
+        write_ptr=new_ptr.to(torch.int32),
+        num_keyframes=state.num_keyframes + kf_inc,
+        last_refresh_position=state.last_refresh_position,
+        nn_aug=update_nn_target(state.nn_aug, rows, kf.xyz, mine),
+        chunk_min=c_min,
+        chunk_max=c_max,
+        kf_index=put_rows(state.kf_index, rows, state.num_keyframes[..., None]),
     )
 
 
@@ -226,9 +277,25 @@ def approx_nearest_neighbors(
     point of each query point (world frame), as a cloud shaped like the
     query; queries with no map point within `radius` are masked. With
     return_d2, also the squared distances (reused by the insert's
-    novelty gate)."""
-    d2, idx = _map_nearest(state, query.xyz, radius)
-    stored = PointCloud(*(take_rows(a, idx) for a in state.cloud))
+    novelty gate).
+
+    Sharded, the winner may lie on another shard: each shard takes its
+    own winner's point (xyz, normal, intensity, validity) and the merge
+    picks the whole map's winner's, one gather of N x 10 f32 a call."""
+    mesh = active_shard()
+    if mesh is None:
+        d2, idx = _map_nearest(state, query.xyz, radius)
+        stored = PointCloud(*(take_rows(a, idx) for a in state.cloud))
+    else:
+        score, d2, idx = nearest_bounded_scores(
+            query.xyz, state.nn_aug, state.cloud.xyz, state.chunk_min, state.chunk_max, radius, bt=BT
+        )
+        local = PointCloud(*(take_rows(a, idx) for a in state.cloud))
+        cols = torch.cat([d2[..., None], local.xyz, local.normals, local.intensity[..., None],
+                          local.mask[..., None].to(torch.float32)], dim=-1)
+        merged = sharded_map.merge_winners(mesh, score, cols)
+        d2 = merged[..., 0]
+        stored = PointCloud(merged[..., 1:4], merged[..., 4:7], merged[..., 7], merged[..., 8] > 0.5)
     mask = query.mask & stored.mask & torch.isfinite(d2)
     out = PointCloud(
         torch.where(mask[..., None], stored.xyz, PAD_COORD),
@@ -242,7 +309,11 @@ def approx_nearest_neighbors(
 
 
 def map_size(state: MapState) -> torch.Tensor:
-    return state.cloud.count()
+    """Stored points; sharded, summed over the shards (exact integers)."""
+    mesh = active_shard()
+    if mesh is None:
+        return state.cloud.count()
+    return torch.stack(gather_ranked(state.cloud.count(), mesh)).sum(dim=0, dtype=state.cloud.count().dtype)
 
 
 def snapshot_to_pcd(state, path: str) -> int:

@@ -20,7 +20,11 @@ scatter applies them in order (the last wins); here the winner is picked
 explicitly (`core.cloud.last_writes`), so the card's store equals the
 CPU's and JAX's.
 
-Unsharded. Every function also takes a state with one leading batch
+Sharded over the "map" axis of a process mesh (`dispatch.shard_context`),
+each shard owns a contiguous range of the whole table's slots: the owner
+answers the same-voxel test for its slots, a rank-ordered gather of the
+answers gives every shard the same write mask, and each shard writes only
+its own slots (`insert_keyframe`). Every function also takes a state with one leading batch
 dimension (the batched replay): each member has its own slots, keys and
 `enabled` flag, the duplicate writes are resolved within each member
 (`last_writes` flattens the slots with a member offset), and the ANN runs
@@ -35,8 +39,9 @@ import torch
 from locus_tpu_torch.config import MapperConfig
 from locus_tpu_torch.core.cloud import PointCloud, last_writes, put_rows, take_rows
 from locus_tpu_torch.mapping import keyframe_map as _ring
-from locus_tpu_torch.ops.dispatch import resolve_device
+from locus_tpu_torch.ops.dispatch import active_shard, resolve_device
 from locus_tpu_torch.ops.kernels.nn import build_nn_target, chunk_boxes, update_chunk_boxes, update_nn_target
+from locus_tpu_torch.parallel.distributed import gather_ranked
 
 # Classic 3D spatial-hash primes (Teschner et al.)
 _P1, _P2, _P3 = 73856093, 19349663, 83492791
@@ -112,11 +117,23 @@ def insert_keyframe(
     (dedup is intrinsic). `enabled` (bool tensor) makes the call a masked
     no-op when False."""
     del nearest_d2
+    mesh = active_shard()
     cap = state.cloud.capacity
     ijk = _voxel_ijk(keyframe.xyz, cfg.map_voxel_leaf)
-    slot = _slot_of(ijk, cap)
-    same_voxel = take_rows(state.occupied, slot) & torch.all(take_rows(state.keys, slot) == ijk, dim=-1)
-    write = keyframe.mask & ~same_voxel
+    if mesh is None:
+        slot = _slot_of(ijk, cap)
+        same_voxel = take_rows(state.occupied, slot) & torch.all(take_rows(state.keys, slot) == ijk, dim=-1)
+        write = keyframe.mask & ~same_voxel
+    else:
+        # whole-table slot s lives on shard s // cap as row s % cap; the
+        # owners' answers (the others say False) are OR-ed in rank order
+        slot = _slot_of(ijk, cap * mesh.shape["map"]) - mesh.map_index * cap
+        mine = (slot >= 0) & (slot < cap)
+        row = torch.where(mine, slot, 0)
+        same_here = mine & take_rows(state.occupied, row) & torch.all(take_rows(state.keys, row) == ijk, dim=-1)
+        same_voxel = torch.stack(gather_ranked(same_here, mesh)).any(dim=0)
+        write = keyframe.mask & ~same_voxel & mine
+        slot = row
     if enabled is not None:
         write = write & enabled[..., None]
     idx = torch.where(write, slot, cap)          # cap: dropped
@@ -180,8 +197,7 @@ def approx_nearest_neighbors(state: HashMapState, query: PointCloud, return_d2: 
     return _ring.approx_nearest_neighbors(state, query, return_d2=return_d2, radius=radius)
 
 
-def map_size(state: HashMapState) -> torch.Tensor:
-    return state.cloud.count()
+map_size = _ring.map_size
 
 
 snapshot_to_pcd = _ring.snapshot_to_pcd

@@ -372,12 +372,21 @@ def nearest_bounded_pre(
     lies beyond `radius` get d2 = +inf. `bt` must be the chunk size the
     operand and boxes were built with. A leading batch dimension runs
     kernel B3, none kernel B2."""
+    _, d2, idx = nearest_bounded_scores(query, t_aug, target, c_min, c_max, radius, bt)
+    return d2, idx
+
+
+def nearest_bounded_scores(query, t_aug, target, c_min, c_max, radius=2.0, bt: int = BT):
+    """`nearest_bounded_pre` that also returns the kernel's score of each
+    winner, |t|^2 - 2 q.t: (score, d2, idx). The winner is the lowest
+    index among the least scores, so per-shard winners merged by the least
+    score (ties to the lowest shard) give the winner of the whole map."""
     n, m = query.shape[-2], target.shape[-2]
     r2 = radius * radius
     t_min, t_max = tile_boxes(query)
     cnt, ids = visit_lists(t_min, t_max, c_min, c_max, r2)
     run = nn_visits_batched if query.dim() == 3 else nn_visits
-    _, i = run(cnt, ids, pack_query(query), t_aug, bt)
+    score, i = run(cnt, ids, pack_query(query), t_aug, bt)
     idx = torch.clamp(i[..., :n].to(torch.int64), 0, m - 1)
     d2 = sq_norm3(query - take_rows(target, idx))
-    return torch.where(d2 <= r2, d2, float("inf")), idx
+    return score[..., :n], torch.where(d2 <= r2, d2, float("inf")), idx

@@ -17,7 +17,9 @@ The iteration counts are fixed (the JAX package's `lax.scan`s), so a solve
 reads nothing on the host. Per-node sums are products with a one-hot
 (node, factor) matrix built once a solve: they sum in an order fixed by the
 shapes on the CPU and the card alike, where a scatter-add would race on
-the card. `optimize_sharded` (factors over a mesh) is ROADMAP A16.
+the card. `optimize_sharded` splits the factors over a mesh axis: each
+rank assembles and multiplies with its own factors, and the per-node sums
+add the ranks' partials in rank order on every rank.
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ import torch
 
 from locus_tpu_torch.geometry import se3
 from locus_tpu_torch.ops.dispatch import resolve_device
+from locus_tpu_torch.parallel.distributed import gather_ranked
+from locus_tpu_torch.parallel.mesh import require_mesh
 
 
 class PoseGraph(NamedTuple):
@@ -102,17 +106,18 @@ def _hvp(g: PoseGraph, Ji, Jj, Wi, Si, Sj, x):
     return Si @ se3.matvec(Ji.transpose(-1, -2), Wu) + Sj @ se3.matvec(Jj.transpose(-1, -2), Wu)
 
 
-def _solve_pcg(g, Ji, Jj, Wi, Si, Sj, b, D, damping: float, iters: int):
+def _solve_pcg(hvp, anchor: int, b, D, damping: float, iters: int):
     """Preconditioned CG on (H + damping I) dx = -b with the block-Jacobi
-    preconditioner of D; the anchor's update is held at zero."""
+    preconditioner of D; `hvp(x)` is H @ x; the anchor's update is held at
+    zero."""
     B = b.shape[0]
     eye = torch.eye(6, dtype=b.dtype, device=b.device)
     Dinv = torch.linalg.inv(D + (damping + 1e-6) * eye)
-    keep = (torch.arange(B, device=b.device) != g.anchor)[:, None].to(b.dtype)
+    keep = (torch.arange(B, device=b.device) != anchor)[:, None].to(b.dtype)
 
     def A(x):
         x = x * keep
-        return (_hvp(g, Ji, Jj, Wi, Si, Sj, x) + damping * x) * keep
+        return (hvp(x) + damping * x) * keep
 
     def precond(x):
         return se3.matvec(Dinv, x) * keep
@@ -143,10 +148,15 @@ def optimize(g: PoseGraph, iterations: int = 10, cg_iterations: int = 25, dampin
     for _ in range(iterations):
         r, Ji, Jj = _residuals_and_jacobians(g)
         b, D = _assemble(r, Ji, Jj, Wi, Si, Sj)
-        dx = _solve_pcg(g, Ji, Jj, Wi, Si, Sj, b, D, damping, cg_iterations)
-        poses = se3.compose(g.poses, se3.se3_exp(dx))
-        g = g._replace(poses=se3.make_transform(se3.orthonormalize(se3.rotation(poses)), se3.translation(poses)))
+        dx = _solve_pcg(lambda x: _hvp(g, Ji, Jj, Wi, Si, Sj, x), g.anchor, b, D, damping, cg_iterations)
+        g = g._replace(poses=_update(g.poses, dx))
     return g
+
+
+def _update(poses, dx):
+    """Right-multiplicative update, rotations re-orthonormalised."""
+    poses = se3.compose(poses, se3.se3_exp(dx))
+    return se3.make_transform(se3.orthonormalize(se3.rotation(poses)), se3.translation(poses))
 
 
 def graph_cost(g: PoseGraph) -> torch.Tensor:
@@ -157,4 +167,37 @@ def graph_cost(g: PoseGraph) -> torch.Tensor:
 
 def optimize_sharded(mesh, g: PoseGraph, iterations: int = 10, cg_iterations: int = 25,
                      damping: float = 1e-4, axis: str = "map") -> PoseGraph:
-    raise NotImplementedError("posegraph.optimize_sharded: factors over a mesh are ROADMAP A16")
+    """`optimize` with the factors split over `axis` of `mesh` (a
+    `parallel.mesh.Mesh`): every rank passes the same whole graph and
+    keeps its block of F / shards factors; b, D and every PCG product with
+    H are its partials summed over the ranks in rank order
+    (`distributed.gather_ranked`), so every rank holds the same poses. The
+    sums add in another order than `optimize`'s, so the poses agree with
+    it to rounding, not bit for bit. F must split evenly (pad with masked
+    factors)."""
+    shards = require_mesh(mesh).shape[axis]
+    F = g.factor_i.shape[0]
+    if F % shards:
+        raise ValueError(f"{F} factors do not split over {shards} ranks; pad with masked factors")
+    lo, n = mesh.index(axis) * (F // shards), F // shards
+    local = g._replace(**{k: getattr(g, k)[lo: lo + n] for k in
+                          ("factor_i", "factor_j", "factor_T", "factor_info", "factor_mask")})
+    Si, Sj = _node_sums(local)
+    Wi = _weighted_info(local)
+
+    def total(x):
+        parts = gather_ranked(x, mesh, axis)
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + p
+        return out
+
+    for _ in range(iterations):
+        r, Ji, Jj = _residuals_and_jacobians(local)
+        b, D = _assemble(r, Ji, Jj, Wi, Si, Sj)
+        bD = total(torch.cat([b, D.flatten(-2)], dim=-1))          # one gather for both
+        b, D = bD[:, :6], bD[:, 6:].unflatten(-1, (6, 6))
+        dx = _solve_pcg(lambda x: total(_hvp(local, Ji, Jj, Wi, Si, Sj, x)), g.anchor, b, D, damping,
+                        cg_iterations)
+        local = local._replace(poses=_update(local.poses, dx))
+    return g._replace(poses=local.poses)

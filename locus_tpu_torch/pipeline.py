@@ -15,7 +15,11 @@ Every single-card configuration of the JAX step is ported: GICP or NDT
 in either stage, the ring or the voxel-hash map, radius or kNN normals,
 the LOAM feature path, the grid/random/outlier/radius filters, keyframes
 at map resolution, the in-graph space monitor and the ground-truth-map
-bootstrap. The sharded map raises NotImplementedError (ROADMAP A16).
+bootstrap. The map may be split over the "map" axis of a process mesh:
+`step` itself does not change, the map functions merge across the shards
+inside `dispatch.shard_context` (the runner's `mesh=` entry points), and
+`mapper.num_shards` is, as in the JAX package, not read: the layout comes
+from the mesh.
 
 Batching: `step` also advances B robots at once, on states stacked by
 `stack_states` (every leaf with a leading B) and per-robot inputs; it has
@@ -90,15 +94,9 @@ class StepOutput(NamedTuple):
     xy_cross_section: torch.Tensor      # -1: the in-graph space monitor is off
 
 
-def _check_supported(cfg: LocusConfig) -> None:
-    if cfg.mapper.num_shards != 1:
-        raise NotImplementedError("sharded map: ROADMAP A16")
-
-
 def init_state(cfg: LocusConfig, initial_pose: Optional[torch.Tensor] = None, device=None) -> LocusState:
     """Initial pipeline state on `device` (None: the CUDA device)."""
     dev = resolve_device(device)
-    _check_supported(cfg)
     if initial_pose is not None:
         initial_pose = torch.as_tensor(initial_pose, dtype=torch.float32).to(dev)
     v = cfg.mapper.velocity_buffer_size
@@ -315,7 +313,6 @@ def step(
 ) -> tuple[LocusState, StepOutput]:
     """Process one merged sweep (base frame); batched, one sweep per robot
     (`raw_scan` (B, N), `stamp` and `seq` (B,))."""
-    _check_supported(cfg)
     flat = cfg.b_is_flat_ground_assumption
     dev = raw_scan.xyz.device
     stamp = torch.as_tensor(stamp, dtype=torch.float32, device=dev)

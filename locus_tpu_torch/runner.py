@@ -11,6 +11,14 @@ SLAM backend), the live step of one upload and one fetch a scan
 package runs those as one compiled `lax.scan`; here a host loop steps
 through the prepacked device tensors.
 
+`mesh=` (a `parallel.mesh.Mesh`) runs the replays and the live step as
+one rank of an SPMD process group: the state's map leaves are this rank's
+shards (`mesh.shard_state`), the scans are replicated (or, batched, this
+rank's data row of robots), and the map merges across the "map" axis
+inside `dispatch.shard_context`. Every rank runs the same host loop on
+the same replicated values, so all of them take the same iterations and
+issue the same collectives.
+
 `run_sequence` packs and uploads each scan on the thread that steps the
 pipeline. The JAX package prepares the next scan on a second thread; here
 that thread's uploads would reach the card while the step runs on it.
@@ -30,7 +38,8 @@ from locus_tpu_torch.core.cloud import PAD_COORD, PointCloud
 from locus_tpu_torch.io.dataset import Sequence, sensor_windows_for_scan
 from locus_tpu_torch.mapping.registry import mapper_fabric
 from locus_tpu_torch.metrics import RateReport
-from locus_tpu_torch.ops.dispatch import no_kernels, resolve_device
+from locus_tpu_torch.ops.dispatch import no_kernels, resolve_device, shard_context
+from locus_tpu_torch.parallel.mesh import check_mesh
 
 
 def pack_scan(xyz: np.ndarray, valid: np.ndarray, capacity: int):
@@ -95,10 +104,10 @@ def make_live_step(cfg: LocusConfig, imu_window: int, odom_window: int, mesh=Non
     rides the aux vector bitwise (an f32 cast would lose integer exactness
     past 2^24 scans). The GICP loops still read their tests on the host
     (ROADMAP, "GICP loop strategy"): one fetch is the output's, not a
-    promise that the step never synchronises. `mesh` (a sharded map) is
-    ROADMAP A16."""
-    if mesh is not None:
-        raise NotImplementedError("make_live_step(mesh=): the sharded map is ROADMAP A16")
+    promise that the step never synchronises. `mesh`: serve with the map
+    split over its "map" axis (the state sharded by `mesh.shard_state`;
+    the big-map live-localization deployment)."""
+    _check_mesh(cfg, mesh)
     KI, KO = imu_window, odom_window
 
     def rstep(state, scan_xyzm, aux):
@@ -111,9 +120,10 @@ def make_live_step(cfg: LocusConfig, imu_window: int, odom_window: int, mesh=Non
         odom_s = aux[o : o + KO]
         o += KO
         odom_p = aux[o : o + KO * 16].reshape(KO, 4, 4)
-        state, out = replay_step(
-            state, scan_xyzm[:, :3], scan_xyzm[:, 3] > 0.5, aux[0], imu_s, imu_q, odom_s, odom_p, seq_id, cfg=cfg
-        )
+        with shard_context(mesh):
+            state, out = replay_step(
+                state, scan_xyzm[:, :3], scan_xyzm[:, 3] > 0.5, aux[0], imu_s, imu_q, odom_s, odom_p, seq_id, cfg=cfg
+            )
         scalars = torch.stack([getattr(out, k).to(torch.float32) for k in LIVE_SCALARS])
         return state, torch.cat([out.pose.reshape(-1), out.covariance.reshape(-1), scalars])
 
@@ -291,17 +301,41 @@ def _replay(cfg: LocusConfig, state, packed, report: Optional[RateReport], outpu
     return state, (torch.stack(poses), torch.stack(conds), torch.stack(sizes))
 
 
+def _check_mesh(cfg: LocusConfig, mesh) -> None:
+    """`mesh=` of an entry point: None, or a Mesh over whose map columns the
+    configured map tiles into whole chunks (TypeError, ValueError)."""
+    if mesh is not None:
+        check_mesh(mesh, cfg.mapper.map_capacity)
+
+
+def _check_sharded(cfg: LocusConfig, mesh, state) -> None:
+    """Raise unless the state's map holds this rank's shard."""
+    if mesh is not None:
+        want = cfg.mapper.map_capacity // mesh.shape["map"]
+        if state.map.cloud.capacity != want:
+            raise ValueError(
+                f"the state's map holds {state.map.cloud.capacity} points, a shard of this mesh {want}: "
+                "shard the state with parallel.mesh.shard_state first"
+            )
+
+
 def make_scan_replay(cfg: LocusConfig, mesh=None):
     """The replay of one prepacked sequence (counterpart of the JAX
     `make_scan_replay`): replay(state, packed, report=None, outputs=None)
     -> (state, (poses (T,4,4), cond (T,), map_sizes (T,))). It is the
-    reference the batched replay is held against. `mesh` (the sharded map) is ROADMAP
-    A16; the JAX `unroll` is a `lax.scan` notion with no counterpart."""
-    if mesh is not None:
-        raise NotImplementedError("make_scan_replay(mesh=): the sharded map is ROADMAP A16")
+    reference the batched replay is held against. The JAX `unroll` is a
+    `lax.scan` notion with no counterpart.
+
+    `mesh`: one sequence with its map split over the mesh's "map" axis
+    (the big-map deployment); every rank calls the replay with the same
+    packed scans and its shard of the state (`mesh.shard_state`), and
+    gets the same poses and whole-map sizes."""
+    _check_mesh(cfg, mesh)
 
     def replay(state, packed, report: Optional[RateReport] = None, outputs: Optional[list] = None):
-        return _replay(cfg, state, packed, report, outputs)
+        _check_sharded(cfg, mesh, state)
+        with shard_context(mesh):
+            return _replay(cfg, state, packed, report, outputs)
 
     return replay
 
@@ -319,15 +353,22 @@ def make_batched_replay(cfg: LocusConfig, mesh=None, use_pallas: Optional[bool] 
 
     `use_pallas=False` runs the kernels' plain PyTorch versions
     (`dispatch.no_kernels()`, the ablation); None and True run the kernels
-    on the card. `mesh` (a sharded batch and map) is ROADMAP A16; the JAX
-    `unroll` is a `lax.scan` notion with no counterpart. With a report,
-    each tick is timed up to a device synchronisation."""
-    if mesh is not None:
-        raise NotImplementedError("make_batched_replay(mesh=): the sharded map is ROADMAP A16")
+    on the card. The JAX `unroll` is a `lax.scan` notion with no
+    counterpart. With a report, each tick is timed up to a device
+    synchronisation.
+
+    `mesh`: the batch split over the mesh's "data" rows and each robot's
+    map over its "map" columns. Every rank passes its own data row's
+    robots (`distributed.local_batch_slice`: their states, each map cut to
+    this rank's shard by `mesh.shard_state`, and their packed scans) and
+    gets their poses; the loops run while any of those robots iterates,
+    the same on every rank of the row."""
+    _check_mesh(cfg, mesh)
 
     def replay(states, packed, report: Optional[RateReport] = None, outputs: Optional[list] = None):
+        _check_sharded(cfg, mesh, states)
         ctx = no_kernels() if use_pallas is False else contextlib.nullcontext()
-        with ctx:
+        with ctx, shard_context(mesh):
             return _replay(cfg, states, packed, report, outputs)
 
     return replay

@@ -123,11 +123,23 @@ def test_prewarm_records_nothing():
 
 
 def test_unported_options_raise():
+    """The options' argument checks: optimize(mesh=) takes a
+    parallel.mesh.Mesh (TypeError otherwise; NCCL asked for more ranks than
+    visible devices refuses to make one), and a one-rank mesh solves as the
+    unsharded backend does; corrections_padded needs an optimize first."""
+    from locus_tpu_torch.parallel import mesh as tmesh
+
     tb = tbackend.PoseGraphBackend(device="cpu")
     for i, p in enumerate(square_trajectory()[:3]):
         tb.add_keyframe(i * 0.1, p)
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(TypeError, match="Mesh"):
         tb.optimize(mesh=object())
+    with pytest.raises(ValueError, match="NCCL"):
+        tmesh.make_mesh(2, map_parallel=2, device_type="cuda", backend="nccl")
+    one = tbackend.PoseGraphBackend(device="cpu")
+    for i, p in enumerate(square_trajectory()[:3]):
+        one.add_keyframe(i * 0.1, p)
+    np.testing.assert_array_equal(one.optimize(mesh=tmesh.make_mesh(1, device_type="cpu")), tb.optimize())
     with pytest.raises(RuntimeError, match="optimize"):
         tbackend.PoseGraphBackend(device="cpu").corrections_padded()
 

@@ -98,7 +98,10 @@ def test_batched_replay_matches_single_and_jax(parallel_case):
 
 def test_batched_replay_options(parallel_case):
     """use_pallas=False runs the plain versions (the same poses on the
-    CPU); the sharded map is ROADMAP A16."""
+    CPU); `mesh=` takes a parallel.mesh.Mesh (TypeError otherwise) whose map
+    columns split the map into whole B2 chunks (ValueError otherwise: this
+    2048-slot map does not split over 2), and a one-rank mesh replays as the
+    unsharded path."""
     jcfg, seqs = parallel_case
     cfg = _port_cfg(jcfg)
     packed = runner.stack_packed([runner.pack_sequence(_port_seq(s), cfg, max_scans=2, device="cpu") for s in seqs])
@@ -106,10 +109,20 @@ def test_batched_replay_options(parallel_case):
     a = runner.make_batched_replay(cfg)(pipeline.init_states(cfg, init, device="cpu"), packed)[1][0]
     b = runner.make_batched_replay(cfg, use_pallas=False)(pipeline.init_states(cfg, init, device="cpu"), packed)[1][0]
     np.testing.assert_array_equal(np_(a), np_(b))
-    with pytest.raises(NotImplementedError, match="A16"):
-        runner.make_batched_replay(cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="A16"):
-        runner.make_scan_replay(cfg, mesh=object())
+    from locus_tpu_torch.parallel import mesh as tmesh
+
+    two = tmesh.Mesh(1, 2, 0, torch.device("cpu"), "gloo")
+    for make in (runner.make_batched_replay, runner.make_scan_replay):
+        with pytest.raises(TypeError, match="Mesh"):
+            make(cfg, mesh=object())
+        with pytest.raises(ValueError, match="multiple of"):
+            make(cfg, mesh=two)
+    with pytest.raises(ValueError, match="multiple of"):
+        tmesh.state_shard_specs(pipeline.init_states(cfg, init, device="cpu"), cfg.mapper.map_capacity, 2,
+                                batched=True)
+    c = runner.make_batched_replay(cfg, mesh=tmesh.make_mesh(1, device_type="cpu"))(
+        pipeline.init_states(cfg, init, device="cpu"), packed)[1][0]
+    np.testing.assert_array_equal(np_(c), np_(a))
 
 
 def test_multi_robot_session_matches_jax():

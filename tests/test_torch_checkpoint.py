@@ -79,11 +79,28 @@ def test_checkpoint_shape_mismatch(tmp_path):
         tckpt.load_state(path, other)
 
 
-def test_sharded_checkpoints_raise():
-    with pytest.raises(NotImplementedError, match="A16"):
-        tckpt.save_state_sharded("x", None)
-    with pytest.raises(NotImplementedError, match="A16"):
-        tckpt.load_state_sharded("x", None)
+def test_sharded_checkpoints_raise(tmp_path):
+    """The sharded pair takes a parallel.mesh.Mesh (TypeError otherwise);
+    on a one-rank mesh it round-trips every leaf into `<prefix>.proc0.npz`,
+    and a template of another layout (another map capacity) raises."""
+    from locus_tpu_torch.parallel import mesh as tmesh
+
+    cfg = config_from_dict(dataclasses.asdict(small_cfg()))
+    state = tpl.init_state(cfg, device="cpu")
+    cap = cfg.mapper.map_capacity
+    with pytest.raises(TypeError, match="Mesh"):
+        tckpt.save_state_sharded("x", state, None, cap)
+    with pytest.raises(TypeError, match="Mesh"):
+        tckpt.load_state_sharded("x", state, object(), cap)
+    one = tmesh.make_mesh(1, device_type="cpu")
+    prefix = str(tmp_path / "ck")
+    assert tckpt.save_state_sharded(prefix, state, one, cap) == prefix + ".proc0.npz"
+    back = tckpt.load_state_sharded(prefix, tpl.init_state(cfg, device="cpu"), one, cap)
+    for (_, a), (_, b) in zip(tckpt.leaves_with_paths(state), tckpt.leaves_with_paths(back)):
+        assert torch.equal(a, b)
+    other = cfg.replace(mapper=dataclasses.replace(cfg.mapper, map_capacity=2 * cap))
+    with pytest.raises(ValueError, match="same mesh"):
+        tckpt.load_state_sharded(prefix, tpl.init_state(other, device="cpu"), one, 2 * cap)
 
 
 def test_port_resumes_from_a_jax_checkpoint(tmp_path, seq):

@@ -949,3 +949,45 @@ def test_three_lidar_merge_on_the_card_matches_the_cpu(cuda_device, alive):
     np.testing.assert_array_equal(mask, ref_mask)
     np.testing.assert_allclose(xyz, ref_xyz, atol=1e-6, rtol=0)
     assert mask.sum() == sum(int(v.sum()) for (_, v), a in zip(scans, alive) if a)
+
+
+def _ranks_on_the_card(tmp_path, world, *args, timeout=600):
+    """tools/torch_dist_smoke.py as `world` ranks on the one card, their
+    collectives through gloo (NCCL takes one rank a device); rank 0's
+    record."""
+    import json
+    import sys
+    from pathlib import Path
+
+    from locus_tpu_torch.parallel.distributed import spawn_ranks
+
+    root = Path(__file__).resolve().parent.parent
+    cmd = [sys.executable, str(root / "tools" / "torch_dist_smoke.py"), *map(str, args), "--device", "cuda",
+           "--backend", "gloo", "--out", str(tmp_path), "--timeout", str(timeout)]
+    results = spawn_ranks(cmd, world, tmp_path / "ranks", timeout, cwd=root)
+    for r, (rc, _, err) in enumerate(results):
+        assert rc == 0, f"rank {r} exited {rc}:\n{err[-4000:]}"
+    return json.loads(results[0][1].strip().splitlines()[-1])
+
+
+# tools/live_endurance.py --ci's shapes with a 4096-slot map: both shards of
+# a 2-column mesh hold points after the 6th of 10 scans
+CI_SHARDED = ("--profile", "ci", "--map-capacity", "4096", "--scans", "10", "--azimuth", "256")
+
+
+@pytest.mark.parametrize("mode,world,extra", [
+    ("pipeline", 2, ()),
+    ("pipeline", 2, ("--structure", "voxel_hash")),
+    ("dp", 4, ("--map-parallel", "2", "--robots", "2")),
+], ids=["ring", "voxel_hash", "data_x_map"])
+def test_sharded_replay_on_the_card_matches_single(cuda_device, tmp_path, mode, world, extra):
+    """The sharded replays on the card, 2 or 4 ranks over gloo, bit for bit
+    the unsharded replay each rank runs beside them; the map 1-NN runs B2
+    (B3 batched) on every rank's 2048-slot shard, B1 (B4) on every rank."""
+    res = _ranks_on_the_card(tmp_path, world, "--mode", mode, *CI_SHARDED, *extra)
+    assert res["bit_equal"] is True and res["device"].startswith("cuda"), res
+    kernels = ("nn_visits_map", "moments_visits") if mode == "pipeline" else (
+        "nn_visits_batched_map", "moments_visits_batched")
+    for r in res["ranks"]:
+        assert r["map_operand_rows"] == 2048
+        assert all(r["launches"][k] > 0 for k in kernels), r["launches"]

@@ -327,10 +327,21 @@ def test_live_step_equals_replay_step(seq):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="A16"):
+    """`mesh=` of the session and the live step takes a parallel.mesh.Mesh
+    (TypeError otherwise) over whose map columns the map splits into whole
+    B2 chunks (ValueError otherwise); NCCL refuses more ranks than visible
+    devices."""
+    from locus_tpu_torch.parallel import mesh as tmesh
+
+    with pytest.raises(TypeError, match="Mesh"):
         LiveSession(cfg=_tcfg(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(TypeError, match="Mesh"):
         runner.make_live_step(_tcfg(), 16, 4, mesh=object())
+    odd = tmesh.Mesh(1, 3, 0, torch.device("cpu"), "gloo")
+    with pytest.raises(ValueError, match="multiple of"):
+        runner.make_live_step(_tcfg(), 16, 4, mesh=odd)
+    with pytest.raises(ValueError, match="NCCL"):
+        tmesh.make_mesh(4, map_parallel=2, device_type="cuda", backend="nccl")
 
 
 def test_live_needs_a_card_unless_asked(monkeypatch):

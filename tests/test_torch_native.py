@@ -5,6 +5,9 @@ JAX package's loader of the same library. Exact: the same bytes parse to
 the same floats, packing copies, and both loaders run one C++ voxel grid.
 Unlike the JAX package's loader, this one raises when the library cannot
 be built."""
+import os
+import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -54,14 +57,35 @@ def test_pack_scan_native(rng):
     assert over_mask.all()
 
 
+def _build_jax_native_whole():
+    """Build the JAX package's library (a build product outside version
+    control) into a temporary file beside it and rename it into place, when
+    it is missing or older than its source, so that this process never
+    leaves a half-written library for another test process to load."""
+    so, src = jnative._SO, os.path.abspath(jnative._SRC)
+    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+        return
+    fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=os.path.dirname(so))
+    os.close(fd)
+    try:
+        subprocess.run(["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-o", tmp, src, "-lpthread"],
+                       check=True, capture_output=True, timeout=120)
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
 @pytest.fixture
 def jax_native_lib(monkeypatch):
     """The JAX package's native library, loaded. Its loader builds the
     library in place: while another test process's g++ is still writing it
     a load fails, and the loader then returns None for the rest of the
     process and falls back to numpy, whose cell order is not the library's
-    (ROADMAP, known issues of the reference). Wait for the build to end and
-    load again, so that the comparison is always with the library."""
+    (ROADMAP, known issues of the reference). Build it whole first, then
+    wait for any other build to end and load again, so that the comparison
+    is always with the library."""
+    _build_jax_native_whole()
     deadline = time.monotonic() + 60.0
     while (lib := jnative.lib()) is None:
         if time.monotonic() > deadline:

@@ -282,14 +282,16 @@ def test_gt_map_bootstrap_matches_jax(tunnel, tmp_path, structure):
 
 
 def test_unported_branches_raise():
-    """The sharded map (A16) raises; the batched step, which raised outside
-    the default configuration until ROADMAP A15b was done, now takes these
-    configurations: the states initialise and one batched step runs."""
+    """`mapper.num_shards`, which raised until the sharded map (A16) was
+    ported, is not read, as in the JAX package (the layout comes from the
+    mesh): the state holds the whole map. The batched step, which raised
+    outside the default configuration until ROADMAP A15b was done, now takes
+    these configurations: the states initialise and one batched step runs."""
     from locus_tpu_torch import pipeline as tpl
 
     base = _port_cfg(small_cfg())
-    with pytest.raises(NotImplementedError, match="A16"):
-        tpl.init_state(base.replace(mapper=R(base.mapper, num_shards=2)), device="cpu")
+    sharded = tpl.init_state(base.replace(mapper=R(base.mapper, num_shards=2)), device="cpu")
+    assert sharded.map.cloud.capacity == base.mapper.map_capacity
     seq = make_tunnel_sequence(num_scans=1, azimuth_steps=64, seed=0)
     for cfg in (
         base.replace(filtering=R(base.filtering, extract_features=True)),

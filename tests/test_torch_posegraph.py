@@ -84,6 +84,14 @@ def test_weighted_factors_match_jax():
 
 
 def test_sharded_optimize_raises():
+    """optimize_sharded takes a parallel.mesh.Mesh (TypeError otherwise)
+    and factors that split evenly over its ranks (ValueError otherwise:
+    4 factors over 3)."""
+    from locus_tpu_torch.parallel import mesh as tmesh
+
     gt, est, fi, fj, fT = chain_graph(n=4)
-    with pytest.raises(NotImplementedError, match="A16"):
-        tpg.optimize_sharded(None, tpg.make_graph(est, fi, fj, fT, device="cpu"))
+    g = tpg.make_graph(est, fi, fj, fT, device="cpu")
+    with pytest.raises(TypeError, match="Mesh"):
+        tpg.optimize_sharded(None, g)
+    with pytest.raises(ValueError, match="factors"):
+        tpg.optimize_sharded(tmesh.Mesh(1, 3, 0, torch.device("cpu"), "gloo"), g)

@@ -7,8 +7,8 @@ Tolerance against JAX: the scans before the loop can close within 1e-2 m
 and 1e-2 rad (tests/test_torch_pipeline.py's replay tolerance) and equal
 keyframe decisions there; after closures each side is held to the JAX
 test's own bounds. `test_full_slam_loop_with_backend` is marked slow in
-the JAX file (Tier-1 deselects it) and optimises on an 8-device mesh
-(ROADMAP A16): it has no counterpart. Its endurance leg
+the JAX file (Tier-1 deselects it) and optimises on an 8-device mesh; the
+port's sharded optimize runs in tests/test_torch_sharded_live.py. Its endurance leg
 (test_slam_integration.py:238) is `test_endurance_mechanisms_scaled`, and
 `test_slam_replay_scaled` runs chip_smoke.py's slam phase at CI shapes on
 the CPU.
