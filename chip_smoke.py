@@ -120,13 +120,32 @@ Phases, each printing one JSON line:
                re-anchor: poses up to the first push-back against phase
                9's (within 1e-4 m), ATE (0.05 m), closures, p50 and max
                latency
+16. tools      the port's command-line tools as a user runs them, each in a
+               process of its own with a deadline (`run_tools`, the list in
+               `tool_commands`), each one's JSON echoed on a line: the
+               production benchmark (tools/torch_bench.py, ATE within
+               0.05 m), the eval suite's four worlds (each within 0.05 m,
+               the loop world closing a loop), serving latency, the
+               profiler, the sensor-drop copy, the memory report, the map
+               ANN's chunk sweep with its visit statistics (ring store at
+               bt 512/1024/2048, the voxel-hash operand, 2 shards; every
+               timed B2 launch bit-equal to its plain version), scaling of
+               the batched replay over 1/2/4 ranks on this card (poses equal
+               to the 1-rank run) and the collective budget of the sharded
+               replay (computed bytes equal to counted bytes); each tool but
+               the sensor-drop copy (numpy only) names the card and its
+               power limit, and launched its path's kernels in its main run
+               (`TOOL_KERNELS`: each tool sets its counters to 0 just before
+               that run and reports them just after; the phase's record
+               keeps them by tool)
 A launch of ranks that outlasts its deadline is ended and fails its phase.
 Then the `kernels` summary line (launches summed over every path, the
 batched paths' on the B3/B4 rows (B3 map on the voxel-hash operand on
 its own row); the `_husky` rows carry the husky phase's, the `_shard`
-rows the B2/B3 map launches of the sharded phases), the
-nvidia-smi line, and the final `{"ok": true, ...}` line. The full record also goes to
-chiprun_out/chip_smoke.json.
+rows the B2/B3 map launches of the sharded phases; phases 1-15 only: the
+tools' runs hold warm-ups and timing loops, so their launches stay in
+phase 16's record), the nvidia-smi line, and the final `{"ok": true,
+...}` line. The full record also goes to chiprun_out/chip_smoke.json.
 """
 import json
 import math
@@ -209,21 +228,25 @@ RANK_TIMEOUT_S = 420          # a launch of ranks is ended after this
 SHARDED_LIMIT_M = 1e-4        # sharded against single (JAX's bound; 0.0 expected)
 SHARD_SUFFIX = "_shard"       # the B2/B3 map rows at one shard's operand
 RANK_INPUTS = "rank_inputs"   # the ranks' sequences, references and checkpoints, deleted after the phases
+# Phase 16: the tools (tools/torch_*.py), each a process with a deadline.
+TOOL_TIMEOUT_S = 600
+EVAL_SCANS = 60               # tools/eval_suite.py's 60 scans a world
+LATENCY_SCANS = 32            # of tools/latency_bench.py's 64
+COLLECTIVE_SCANS = 12         # of tools/torch_collective_budget.py's 24 (the bytes do not depend on it)
+NN_BENCH_BTS = (512, 1024, 2048)   # the map ANN sweep's chunk sizes (tools/torch_nn_bench.py)
+# the kernels each tool's main run must launch (each process or rank): B2
+# at every swept chunk size on the sweep (bt 1024 has a counter of its own)
+TOOL_KERNELS = {
+    "bench": SINGLE_PATH, "eval_suite": SINGLE_PATH, "latency_bench": SINGLE_PATH, "profiler": SINGLE_PATH,
+    "memory_report": SINGLE_PATH, "nn_bench": ("nn_visits_scan", "nn_visits_bt1024", "nn_visits_map"),
+    "nn_bench_voxel_hash": ("nn_visits_map",), "nn_bench_shards": ("nn_visits_map",),
+    "scaling_bench": BATCHED_PATH, "collective_budget": SINGLE_PATH,
+}
+DROP_GAPS = (("--odom-gaps", "0.5:0.9"), ("--imu-gaps", "1.0:1.2"))
 
 
 def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
-
-
-def production_config(cfg_mod):
-    """The production config of bench.py:36-47."""
-    return cfg_mod.LocusConfig(
-        scan_capacity=4096,
-        raw_scan_capacity=32768,
-        points_to_process_in_callback=3000,
-        filtering=cfg_mod.FilterConfig(normals_k=20),
-        mapper=cfg_mod.MapperConfig(map_capacity=1 << 17, keyframe_capacity=4096, map_voxel_leaf=0.15),
-    )
 
 
 def path_config(cfg, name):
@@ -952,6 +975,132 @@ def sharded_live_problems(record):
     return problems
 
 
+def tool_commands(workdir):
+    """(name, script, arguments) of each tool run of phase 16, at the sizes
+    that keep the phase within a few minutes (the benchmark at its full
+    protocol, the eval suite at its 60 scans a world; the latency bench and
+    the collective budget on fewer scans)."""
+    from locus_tpu_torch.io.dataset import make_tunnel_sequence
+
+    drops_in = workdir / "drops_in.npz"
+    make_tunnel_sequence(num_scans=20, azimuth_steps=64, seed=0).save(str(drops_in))
+    gaps = [a for flag, gap in DROP_GAPS for a in (flag, gap)]
+    bts = ",".join(map(str, NN_BENCH_BTS))
+    return [
+        ("bench", "torch_bench.py", []),
+        ("eval_suite", "torch_eval_suite.py", ["--scans", EVAL_SCANS]),
+        ("latency_bench", "torch_latency_bench.py", ["--scans", LATENCY_SCANS]),
+        ("profiler", "torch_profiler.py", []),
+        ("simulate_sensor_drops", "torch_simulate_sensor_drops.py", [drops_in, workdir / "drops_out.npz", *gaps]),
+        ("memory_report", "torch_memory_report.py", []),
+        ("nn_bench", "torch_nn_bench.py", ["--bt", bts]),
+        ("nn_bench_voxel_hash", "torch_nn_bench.py", ["--bt", 2048, "--operand", "voxel_hash"]),
+        ("nn_bench_shards", "torch_nn_bench.py", ["--bt", 2048, "--shards", 2]),
+        ("scaling_bench", "torch_scaling_bench.py", ["--ranks", 1, 2, 4, "--production"]),
+        ("collective_budget", "torch_collective_budget.py", ["--ranks", 2, "--scans", COLLECTIVE_SCANS]),
+    ]
+
+
+def run_tool(name, script, args, workdir, timeout=TOOL_TIMEOUT_S):
+    """One tool in a process group of its own (its ranks included), ended
+    at `timeout`: (exit code, seconds, its JSON record or None, stderr's
+    tail)."""
+    import os
+    import signal
+
+    out = workdir / f"{name}.json"
+    out.unlink(missing_ok=True)
+    argv = [sys.executable, str(ROOT / "tools" / script), *map(str, args)]
+    if name != "simulate_sensor_drops":
+        argv += ["--json", str(out)]
+    t0 = time.perf_counter()
+    with open(workdir / f"{name}.out", "w") as so, open(workdir / f"{name}.err", "w+") as se:
+        proc = subprocess.Popen(argv, stdout=so, stderr=se, cwd=ROOT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            rc = 124
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)   # the tool's ranks too
+            except ProcessLookupError:
+                pass
+            proc.wait()
+        se.seek(0)
+        err = se.read()[-3000:]
+    record = json.loads(out.read_text()) if out.exists() else None
+    return rc, time.perf_counter() - t0, record, err
+
+
+def run_tools(np, workdir):
+    """Phase 16: every tool of `tool_commands`; returns the phase record
+    (each tool's exit code, seconds and JSON) after emitting each tool's
+    line."""
+    from locus_tpu_torch.io.dataset import Sequence
+
+    workdir.mkdir(parents=True, exist_ok=True)
+    tools = {}
+    for name, script, args in tool_commands(workdir):
+        rc, seconds, result, err = run_tool(name, script, args, workdir)
+        if name == "simulate_sensor_drops" and rc == 0:
+            src, dst = Sequence.load(str(args[0])), Sequence.load(str(args[1]))
+            result = {"odom_samples": [len(src.odom_stamps), len(dst.odom_stamps)],
+                      "imu_samples": [len(src.imu_stamps), len(dst.imu_stamps)],
+                      "scans_kept": bool(np.array_equal(src.scans, dst.scans))}
+        tools[name] = {"rc": rc, "seconds": seconds, "result": result} | ({"stderr_tail": err} if rc else {})
+        emit({"phase": "tools", "tool": name} | tools[name])
+    return {"phase": "tools", "tools": {
+        k: {"rc": v["rc"], "seconds": v["seconds"], "launches": tool_run_launches(k, v["result"])}
+        for k, v in tools.items()}}, tools
+
+
+def tool_run_launches(name, result):
+    """The launch counts of a tool's main run, one dict a process (a rank
+    tool's ranks, over its rank counts), each counted from 0 by the tool."""
+    if not result:
+        return []
+    if name == "scaling_bench":
+        return [ranks for row in result["results"].values() for ranks in row["launches_per_rank"]]
+    if name == "collective_budget":
+        return result["launches_per_rank"]
+    return [result["launches"]] if "launches" in result else []
+
+
+def tools_problems(tools):
+    """What fails phase 16."""
+    problems = []
+    for name, t in tools.items():
+        r = t["result"]
+        if t["rc"] != 0 or r is None:
+            problems.append(f"tools: {name} exited {t['rc']}: {t.get('stderr_tail', '')[-500:]}")
+        elif name != "simulate_sensor_drops" and not (r.get("device") and r.get("power_limit_w")):
+            problems.append(f"tools: {name} names no card or power limit: {r.get('device')}, {r.get('power_limit_w')}")
+    ok = {name: t["result"] for name, t in tools.items() if t["rc"] == 0 and t["result"] is not None}
+    if "bench" in ok and not ok["bench"]["ate_m"] <= ATE_LIMIT_M:
+        problems.append(f"tools: bench ATE {ok['bench']['ate_m']} m exceeds {ATE_LIMIT_M} m")
+    for world, row in ok.get("eval_suite", {}).get("worlds", {}).items():
+        if not row["ate_m"] <= ATE_LIMIT_M:
+            problems.append(f"tools: eval world {world} ATE {row['ate_m']} m exceeds {ATE_LIMIT_M} m")
+        if world == "loop" and row.get("loop_closures", 0) < 1:
+            problems.append("tools: the eval suite's loop world closed no loop")
+    for name in ("nn_bench", "nn_bench_voxel_hash", "nn_bench_shards"):
+        if name in ok and not ok[name]["bit_equal"]:
+            problems.append(f"tools: a timed B2 launch of {name} differs from its plain version")
+    if "scaling_bench" in ok and not ok["scaling_bench"]["poses_equal_single_rank"]:
+        problems.append("tools: the scaling bench's poses part from its 1-rank run")
+    if "collective_budget" in ok and not ok["collective_budget"]["computed_equals_counted"]:
+        problems.append("tools: the collective budget's computed bytes differ from its counted bytes")
+    for name, kernels in TOOL_KERNELS.items():
+        runs = tool_run_launches(name, ok.get(name))
+        if name in ok and not (runs and all(run.get(k, 0) > 0 for run in runs for k in kernels)):
+            problems.append(f"tools: {name}'s main run did not launch {kernels}: {runs}")
+    drops = ok.get("simulate_sensor_drops")
+    if drops and not (drops["odom_samples"][1] < drops["odom_samples"][0]
+                      and drops["imu_samples"][1] < drops["imu_samples"][0] and drops["scans_kept"]):
+        problems.append(f"tools: the sensor-drop copy dropped no samples or changed the scans: {drops}")
+    return problems
+
+
 def device_time_ms(torch, fn, reps=20, warmup=3):
     """Median device time of fn() in ms: CUDA events around each call,
     queued behind a sleep kernel so host enqueue time is not measured."""
@@ -1183,10 +1332,13 @@ def kernel_checks(torch, tnn, tmom, build, cfg, pc, state, suffix):
 def reset_launches(tnn, tmom):
     for counts in (tnn.launches, tnn.batched_launches):
         counts.update({bt: 0 for bt in counts})
+    tnn.other_launches.clear()
     tmom.launches = tmom.batched_launches = tmom.dense_launches = tmom.dense_batched_launches = 0
 
 
 def read_launches(tnn, tmom):
+    """The counters by row name; B2/B3 at another chunk size than the
+    pipeline's two (a sweep's) as `nn_visits[_batched]_bt<size>`."""
     return {
         "moments_visits": tmom.launches,
         "nn_visits_scan": tnn.launches[tnn.SCAN_BT],
@@ -1196,7 +1348,7 @@ def read_launches(tnn, tmom):
         "moments_visits_batched": tmom.batched_launches,
         "moments_dense": tmom.dense_launches,
         "moments_dense_batched": tmom.dense_batched_launches,
-    }
+    } | {f"nn_visits{'_batched' if batched else ''}_bt{bt}": n for (batched, bt), n in tnn.other_launches.items()}
 
 
 def run_path(torch, np, runner, tnn, tmom, cfg, seq, ref_poses, name, dev):
@@ -1360,7 +1512,7 @@ def main() -> int:
         }
         emit(record["build"])
 
-        cfg = production_config(cfg_mod)
+        cfg = cfg_mod.production_config()
         t0 = time.perf_counter()
         seq = make_tunnel_sequence(num_scans=SCANS, azimuth_steps=1800, step=0.35, seed=0)
         robot_seqs = [
@@ -1624,6 +1776,16 @@ def main() -> int:
             shutil.rmtree(workdir / RANK_INPUTS, ignore_errors=True)
         problems = (sharded_problems(record["sharded"], cap) + sharded_batched_problems(record["sharded_batched"], cap)
                     + sharded_live_problems(record["sharded_live"]))
+        if problems:
+            raise RuntimeError("; ".join(problems))
+
+        # 16. the tools, each in a process of its own; every tool runs,
+        # then any tool's failure fails the script
+        t0 = time.perf_counter()
+        record["tools"], tools = run_tools(np, workdir / "tools")
+        record["tools"]["seconds"] = time.perf_counter() - t0
+        record["tools"]["results"] = {k: v["result"] for k, v in tools.items()}
+        problems = tools_problems(tools)
         if problems:
             raise RuntimeError("; ".join(problems))
     except Exception:

@@ -21,6 +21,7 @@ adaptive voxel leaf size) live in device state instead.
 from __future__ import annotations
 
 import dataclasses
+import sys
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -305,6 +306,21 @@ class LocusConfig:
                 ),
             )
         return cfg
+
+
+def production_config(cfg_mod=None) -> LocusConfig:
+    """bench.py's production configuration: 4096-point scans, 32768-point
+    raw sweeps, 3000 points a callback, normals_k 20, a 131072-slot map of
+    0.15 m leaf and 4096-point keyframes. `cfg_mod` builds it from another
+    module with the same config classes (default: this one)."""
+    m = cfg_mod or sys.modules[__name__]
+    return m.LocusConfig(
+        scan_capacity=4096,
+        raw_scan_capacity=32768,
+        points_to_process_in_callback=3000,
+        filtering=m.FilterConfig(normals_k=20),
+        mapper=m.MapperConfig(map_capacity=1 << 17, keyframe_capacity=4096, map_voxel_leaf=0.15),
+    )
 
 
 def _update_dataclass(obj, data: dict):

@@ -54,9 +54,13 @@ BOX_BIG = 1e9
 
 # Launches of the CUDA kernels since the last reset, by chunk size (each
 # size is its own template instance): B2 (`launches`, one member) and B3
-# (`batched_launches`, one launch for a batch). Plain runs are not counted.
+# (`batched_launches`, one launch for a batch) at the pipeline's two sizes;
+# B2 or B3 at any other size (a benchmark's sweep) in `other_launches`, by
+# (batched, bt), so that the first two keep their keys. Plain runs are not
+# counted.
 launches = {SCAN_BT: 0, BT: 0}
 batched_launches = {SCAN_BT: 0, BT: 0}
+other_launches = {}
 
 
 def sq_norm3(x: torch.Tensor) -> torch.Tensor:
@@ -326,7 +330,11 @@ def _nn_visits_cuda(cnt, ids, q, t_aug, bt: int, batched: bool, num_splits=None)
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(status, entry)
-    (batched_launches if batched else launches)[bt] += 1
+    counts = batched_launches if batched else launches
+    if bt in counts:
+        counts[bt] += 1
+    else:
+        other_launches[batched, bt] = other_launches.get((batched, bt), 0) + 1
     return d, i
 
 

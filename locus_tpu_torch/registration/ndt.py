@@ -54,6 +54,7 @@ from locus_tpu_torch.registration.gicp import (
     _sym3_vec,
     select,
 )
+from locus_tpu_torch.registration.registry import register_method
 from locus_tpu_torch.utils.linalg import sum_last, tree_sum
 
 # Voxel-key packing: coordinates clipped to [-_KEY_B, _KEY_B - 1] pack into
@@ -551,3 +552,6 @@ def ndt_register(
         corr_mask=corr_mask,
         num_correspondences=ncorr,
     )
+
+
+register_method("ndt")(ndt_register)

@@ -68,6 +68,26 @@ def test_nn_kernel_matches_plain(cuda_device, bt, m, radius):
     np.testing.assert_array_equal(np_(ki), np_(pi))
 
 
+@pytest.mark.parametrize("batch", [0, 4])
+def test_nn_kernel_sweep_chunk_size_matches_plain(cuda_device, batch):
+    """B2/B3 at bt 1024, a chunk size of the map ANN sweep
+    (tools/torch_nn_bench.py) that the pipeline never uses: counted apart,
+    so the pipeline's counters keep their two keys."""
+    bt = 1024
+    cnt, ids, qp, t_aug = _nn_inputs(cuda_device, bt, batch, 2.0)
+    run = tnn.nn_visits_batched if batch else tnn.nn_visits
+    before = (dict(tnn.launches), dict(tnn.batched_launches), tnn.other_launches.get((bool(batch), bt), 0))
+    kd, ki = run(cnt, ids, qp, t_aug, bt)
+    torch.cuda.synchronize()
+    assert (tnn.launches, tnn.batched_launches) == before[:2]
+    assert tnn.other_launches[bool(batch), bt] == before[2] + 1
+    with dispatch.no_kernels():
+        pd, pi = run(cnt, ids, qp, t_aug, bt)
+    assert tnn.other_launches[bool(batch), bt] == before[2] + 1
+    np.testing.assert_array_equal(np_(kd.view(torch.int32)), np_(pd.view(torch.int32)))
+    np.testing.assert_array_equal(np_(ki), np_(pi))
+
+
 @pytest.mark.parametrize("leaf", [0.1, 0.2, 0.4])
 def test_moments_kernel_matches_plain(cuda_device, leaf):
     xyz, _ = _cloud(cuda_device, 4096, leaf, 3)

@@ -26,9 +26,10 @@ def _imports(path: Path):
             yield node.module
 
 
-# the port's tools, apart from the two that compare it with JAX by design
+# the port's tools and their shared helpers, apart from the two tools that
+# compare it with JAX by design
 PORT_TOOLS = sorted(p for p in (ROOT / "tools").glob("torch_*.py")
-                    if p.name not in ("torch_parity.py", "torch_chaos_probe.py"))
+                    if p.name not in ("torch_parity.py", "torch_chaos_probe.py")) + [ROOT / "tools" / "_torch_tool.py"]
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + PORT_TOOLS,

@@ -32,3 +32,15 @@ def pose_diff(Ta, Tb):
     d = np.linalg.norm(Ta[:3, 3] - Tb[:3, 3])
     Rrel = Ta[:3, :3].T @ Tb[:3, :3]
     return d, np.arccos(np.clip((np.trace(Rrel) - 1) / 2, -1, 1))
+
+
+def load_tool(name):
+    """tools/<name>.py as a module (tools/ on sys.path, for its helpers)."""
+    import importlib
+    import sys
+    from pathlib import Path
+
+    tools = str(Path(__file__).resolve().parent.parent / "tools")
+    if tools not in sys.path:
+        sys.path.append(tools)
+    return importlib.import_module(name)

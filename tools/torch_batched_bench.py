@@ -46,13 +46,13 @@ def main() -> int:
         print("torch_batched_bench: needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import path_config, production_config, robot_sequences
+    from chip_smoke import path_config, robot_sequences
     from locus_tpu_torch import config as cfg_mod, pipeline, runner
     from locus_tpu_torch.io import dataset
     from locus_tpu_torch.metrics import RateReport
 
     dev = torch.device("cuda")
-    cfg = path_config(production_config(cfg_mod), args.config)
+    cfg = path_config(cfg_mod.production_config(), args.config)
     seqs = robot_sequences(dataset, args.config, num_scans=args.scans, robots=args.robots)
     packed = [runner.pack_sequence(s, cfg, device=dev) for s in seqs]
     stacked = runner.stack_packed(packed)

@@ -34,8 +34,11 @@ mode's result with every rank's record under "ranks". --seq/--ref replace
 the default sequence and the in-process unsharded reference with files
 (`Sequence.save` npz; an npz of "poses" and "sizes"); --profile small runs
 tests/test_pipeline.py's small_cfg, ci tools/live_endurance.py --ci's
-shapes, production the production protocol of chip_smoke.py. Imports neither JAX nor the
-JAX package.
+shapes, production the production protocol of chip_smoke.py, scaling
+tools/scaling_bench.py's default shapes. --count-collectives (pipeline
+modes) counts every `gather_ranked` call a scan with the bytes it moves
+(tools/torch_collective_budget.py). Imports neither JAX nor the JAX
+package.
 """
 import argparse
 import contextlib
@@ -71,6 +74,16 @@ def ci_config(cfg_mod):
     )
 
 
+def scaling_config(cfg_mod):
+    """tools/scaling_bench.py's default shapes: 512-point scans, 2048-point
+    raw sweeps, a 4096-slot map."""
+    return cfg_mod.LocusConfig(
+        scan_capacity=512, raw_scan_capacity=2048, points_to_process_in_callback=400,
+        filtering=cfg_mod.FilterConfig(normals_k=8),
+        mapper=cfg_mod.MapperConfig(map_capacity=4096, keyframe_capacity=512, map_voxel_leaf=0.1),
+    )
+
+
 def small_config(cfg_mod):
     """tests/test_pipeline.py's small_cfg: 1024-point scans, 4096-point
     raw sweeps, an 8192-slot map."""
@@ -88,7 +101,7 @@ def config(args):
     from locus_tpu_torch import config as cfg_mod
 
     profiles = {"tiny": tiny_pipeline_config, "small": small_config, "ci": ci_config,
-                "production": chip_smoke.production_config}
+                "scaling": scaling_config, "production": cfg_mod.production_config}
     cfg = profiles[args.profile](cfg_mod)
     if args.structure:
         cfg = cfg.replace(mapper=dataclasses.replace(cfg.mapper, structure=args.structure))
@@ -180,6 +193,45 @@ def collectives(args, rec, steps):
     rec["collectives_per_step"] = sum(e.count for e in ev) / steps
 
 
+@contextlib.contextmanager
+def counted_collectives(args, rec, steps):
+    """With --count-collectives, count every `distributed.gather_ranked`
+    call of the enclosed run (each module that calls it is given a counting
+    wrapper) and put into `rec` a step's calls, the bytes this rank sends
+    and the bytes it receives gathered (its own part included), by the
+    (shape, dtype, ranks) of the gathered tensor."""
+    if not args.count_collectives:
+        yield
+        return
+    from locus_tpu_torch.mapping import keyframe_map, voxel_hash_map
+    from locus_tpu_torch.parallel import distributed, mesh as mesh_mod, posegraph, sharded_map
+
+    callers = (keyframe_map, voxel_hash_map, mesh_mod, posegraph, sharded_map)
+    inner = distributed.gather_ranked
+    calls = {}
+
+    def counting(x, mesh, axis="map"):
+        key = f"{tuple(x.shape)} {str(x.dtype).removeprefix('torch.')} x{mesh.shape[axis]}"
+        n = calls.setdefault(key, [0, x.numel() * x.element_size(), mesh.shape[axis]])
+        n[0] += 1
+        return inner(x, mesh, axis)
+
+    for m in callers:
+        m.gather_ranked = counting
+    try:
+        yield
+    finally:
+        for m in callers:
+            m.gather_ranked = inner
+    rec["counted_collectives"] = {
+        "steps": steps,
+        "calls_per_step": sum(c for c, _, _ in calls.values()) / steps,
+        "sent_bytes_per_step": sum(c * b for c, b, _ in calls.values()) / steps,
+        "gathered_bytes_per_step": sum(c * b * r for c, b, r in calls.values()) / steps,
+        "by_tensor": {k: {"calls": c, "bytes_each": b, "ranks": r} for k, (c, b, r) in calls.items()},
+    }
+
+
 def run_sum(args, torch, mesh, dev):
     from locus_tpu_torch.parallel.distributed import gather_ranked, local_batch_slice
 
@@ -227,7 +279,8 @@ def run_pipeline(args, torch, mesh, cfg, dev):
     report = RateReport()
     launches(reset=True)
     t0 = time.perf_counter()
-    with collectives(args, rec, packed["seq_ids"].shape[0]):
+    steps = packed["seq_ids"].shape[0]
+    with collectives(args, rec, steps), counted_collectives(args, rec, steps):
         state, (poses, _, sizes) = replay(state, packed, report=report)
     rec["wall_s"] = time.perf_counter() - t0
     rec["launches"] = launches(reset=False)
@@ -421,7 +474,7 @@ def main() -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo")
     ap.add_argument("--map-parallel", type=int, help="map columns of the mesh (default: all ranks; dp and sum: 1)")
-    ap.add_argument("--profile", choices=("tiny", "small", "ci", "production"), default="tiny")
+    ap.add_argument("--profile", choices=("tiny", "small", "ci", "scaling", "production"), default="tiny")
     ap.add_argument("--structure", choices=("ring", "voxel_hash"))
     ap.add_argument("--map-capacity", type=int)
     ap.add_argument("--msw-box", type=float, help="a small sliding window that evicts within a few scans")
@@ -438,6 +491,8 @@ def main() -> int:
     ap.add_argument("--window", type=int, default=32, help="scans (ticks) of the rate window")
     ap.add_argument("--trace-collectives", action="store_true",
                     help="pipeline modes: profile the replay and report the ms a scan in the gathers")
+    ap.add_argument("--count-collectives", action="store_true",
+                    help="pipeline modes: count the gathers a scan and the bytes they move")
     ap.add_argument("--out", help="directory for rank 0's poses")
     ap.add_argument("--timeout", type=float, default=600.0, help="seconds before the ranks are ended")
     args = ap.parse_args()

@@ -76,7 +76,7 @@ def main() -> int:
     base_lib = build_base(build, Path(args.base))
     stream = torch.cuda.current_stream().cuda_stream
 
-    cfg = cs.production_config(cfg_mod)
+    cfg = cfg_mod.production_config()
     seq = make_tunnel_sequence(num_scans=cs.SCANS, azimuth_steps=1800, step=0.35, seed=0)
     robot_seqs = [make_tunnel_sequence(num_scans=cs.ROBOT_SCANS, azimuth_steps=1800, step=st, seed=b)
                   for b, st in enumerate(cs.ROBOT_STEPS)]

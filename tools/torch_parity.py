@@ -174,11 +174,12 @@ def closure_paths(args) -> dict:
     from locus_tpu.io.dataset import Sequence
     from locus_tpu.live import LiveSession as JLive
     from locus_tpu.runner import pack_scan, run_sequence as jax_run
+    from locus_tpu_torch.config import production_config
     from locus_tpu_torch.convert import config_from_dict
 
     n = args.scans or cs.CIRCUIT_SCANS
     live = args.config == "live"
-    cfg = cs.serving_config(cs.production_config(jcfg_mod))
+    cfg = cs.serving_config(production_config(jcfg_mod))
     tcfg = config_from_dict(dataclasses.asdict(cfg))
     tseq = cs.circuit_sequence(n, cs.LIVE_AZIMUTH if live else cs.SLAM_AZIMUTH)
     seq = Sequence(**{f.name: getattr(tseq, f.name) for f in dataclasses.fields(Sequence)})
@@ -293,7 +294,7 @@ def main() -> int:
     import numpy as np
     import torch
 
-    from chip_smoke import SCANS, path_config, production_config
+    from chip_smoke import SCANS, path_config
     from locus_tpu import config as jcfg_mod
     from locus_tpu.config import FusionConfig
     from locus_tpu.io.dataset import Sequence, make_tunnel_sequence, make_world_sequence

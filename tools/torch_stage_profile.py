@@ -85,11 +85,11 @@ def live_steps(torch, num_scans, dev):
     the serving config)."""
     import numpy as np
 
-    from chip_smoke import LIVE_AZIMUTH, circuit_sequence, production_config, sensor_feeds, serving_config
+    from chip_smoke import LIVE_AZIMUTH, circuit_sequence, sensor_feeds, serving_config
     from locus_tpu_torch import config as cfg_mod
     from locus_tpu_torch.live import LiveSession
 
-    cfg = serving_config(production_config(cfg_mod))
+    cfg = serving_config(cfg_mod.production_config())
     seq = circuit_sequence(num_scans, LIVE_AZIMUTH)
     feeds = sensor_feeds(np, seq)
     sess = LiveSession(cfg=cfg, initial_pose=seq.gt_poses[0], device=dev)
@@ -149,7 +149,7 @@ def main() -> int:
         print("torch_stage_profile: needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import path_config, path_sequence, production_config, robot_sequences
+    from chip_smoke import path_config, path_sequence, robot_sequences
     from locus_tpu_torch import config as cfg_mod, pipeline, runner
     from locus_tpu_torch.io import dataset
     from locus_tpu_torch.io.dataset import make_tunnel_sequence
@@ -161,7 +161,7 @@ def main() -> int:
     elif args.config == "husky":
         step, cfg, state = husky_steps(torch, args.scans, dev)
     else:
-        cfg = path_config(production_config(cfg_mod), args.config)
+        cfg = path_config(cfg_mod.production_config(), args.config)
         if args.robots == 1:
             seq = path_sequence(
                 dataset, args.config,
