@@ -137,7 +137,14 @@ Phases, each printing one JSON line:
                power limit, and launched its path's kernels in its main run
                (`TOOL_KERNELS`: each tool sets its counters to 0 just before
                that run and reports them just after; the phase's record
-               keeps them by tool)
+               keeps them by tool); then the five replay-level experiments
+               (tools/torch_exp_*.py) at shortened windows (`EXPERIMENTS`:
+               every JAX variant has its row, every variant's timed replay
+               launched B1 and B2 and repeated its untimed replay's poses
+               bit for bit (the tool exits non-zero otherwise), exp_gap's
+               default poses within 1e-4 m of
+               phase 5's, exp_inner's inner-3 worlds within 0.05 m ATE)
+               and examples/torch_quickstart.py at QUICKSTART_SCANS scans
 A launch of ranks that outlasts its deadline is ended and fails its phase.
 Then the `kernels` summary line (launches summed over every path, the
 batched paths' on the B3/B4 rows (B3 map on the voxel-hash operand on
@@ -234,6 +241,24 @@ EVAL_SCANS = 60               # tools/eval_suite.py's 60 scans a world
 LATENCY_SCANS = 32            # of tools/latency_bench.py's 64
 COLLECTIVE_SCANS = 12         # of tools/torch_collective_budget.py's 24 (the bytes do not depend on it)
 NN_BENCH_BTS = (512, 1024, 2048)   # the map ANN sweep's chunk sizes (tools/torch_nn_bench.py)
+# The replay-level experiments (tools/torch_exp_*.py) at shortened windows
+# (12-18 timed scans, one rep, every variant), with the names of the JAX
+# tools' variants (tools/exp_*.py), each of which must have its row; and
+# the quickstart at a few scans.
+EXPERIMENTS = {
+    "exp_ablate": ("torch_exp_ablate.py", ["--scans", 18, "--reps", 1],
+                   ("base", "no_kf_msw", "no_cov", "s2s_0iter", "s2m_0iter", "no_adapt")),
+    "exp_gap": ("torch_exp_gap.py", ["--scans", 12, "--reps", 1],
+                ("default", "no_keyframes", "iter_cap_8", "iter_cap_4", "inner_2", "no_cov", "no_adaptive")),
+    "exp_gap2": ("torch_exp_gap2.py", ["--scans", 24, "--reps", 1],
+                 ("warm_default", "warm_no_kf", "warm_no_msw_gate", "warm_no_cov", "warm_inner2",
+                  "warm_no_adaptive_leaf", "warm_fusion_none", "warm_no_seq_stats", "warm_no_sensor_push")),
+    # windows of 9 and 27 scans after a 3-scan warm-up (48, 144, 16 at full size)
+    "exp_steady": ("torch_exp_steady.py", ["--scans", 27, "--reps", 1], ("fresh9", "steady6", "fresh27", "steady24")),
+    "exp_inner": ("torch_exp_inner.py", ["--scans", 12, "--world-scans", 12, "--reps", 1], ("inner3", "inner2")),
+}
+QUICKSTART_SCANS = 6
+EXP_POSE_LIMIT_M = 1e-4       # exp_gap's default variant against phase 5 (the same step; 0.0 expected)
 # the kernels each tool's main run must launch (each process or rank): B2
 # at every swept chunk size on the sweep (bt 1024 has a counter of its own)
 TOOL_KERNELS = {
@@ -241,7 +266,7 @@ TOOL_KERNELS = {
     "memory_report": SINGLE_PATH, "nn_bench": ("nn_visits_scan", "nn_visits_bt1024", "nn_visits_map"),
     "nn_bench_voxel_hash": ("nn_visits_map",), "nn_bench_shards": ("nn_visits_map",),
     "scaling_bench": BATCHED_PATH, "collective_budget": SINGLE_PATH,
-}
+} | {name: SINGLE_PATH for name in EXPERIMENTS}
 DROP_GAPS = (("--odom-gaps", "0.5:0.9"), ("--imu-gaps", "1.0:1.2"))
 
 
@@ -357,8 +382,10 @@ def sensor_feeds(np, seq):
     return [((imu[i - 1] if i else 0, imu[i]), (odo[i - 1] if i else 0, odo[i])) for i in range(len(seq))]
 
 
-def launch_delta(tnn, tmom, before):
-    return {k: v - before[k] for k, v in read_launches(tnn, tmom).items()}
+def launch_delta(before):
+    from locus_tpu_torch.ops.kernels import read_launches
+
+    return {k: v - before[k] for k, v in read_launches().items()}
 
 
 def add_counts(total, delta):
@@ -385,7 +412,7 @@ def serve_live(torch, np, cfg, seq, dev, workdir, resume_at=RESUME_AT, ab_scans=
     from locus_tpu_torch.config import RegistrationConfig
     from locus_tpu_torch.live import LiveSession
     from locus_tpu_torch.ops import dispatch
-    from locus_tpu_torch.ops.kernels import build, moments as tmom, nn as tnn
+    from locus_tpu_torch.ops.kernels import build, nn as tnn, read_launches, reset_launches
 
     n, feeds = len(seq), sensor_feeds(np, seq)
     cap = cfg.raw_scan_capacity
@@ -421,19 +448,19 @@ def serve_live(torch, np, cfg, seq, dev, workdir, resume_at=RESUME_AT, ab_scans=
     per_scan, per_closure = {}, {}
     lat, poses, pushes = [], [], []
     keyframes, attempts = 0, 0
-    reset_launches(tnn, tmom)
+    reset_launches()
     t_run = time.perf_counter()
     for i in range(n):
-        before = read_launches(tnn, tmom)
+        before = read_launches()
         t0 = time.perf_counter()
         pose, out = serve(sess, i)
         lat.append(time.perf_counter() - t0)
-        add_counts(per_scan, launch_delta(tnn, tmom, before))
+        add_counts(per_scan, launch_delta(before))
         poses.append(np.asarray(pose, np.float64))
         if i + 1 == resume_at:
             shutil.copy(ckpt, workdir / "live_resume.npz")
         if out.keyframe_inserted:
-            before = read_launches(tnn, tmom)
+            before = read_launches()
             backend.add_keyframe(float(seq.stamps[i]), pose, cloud=verification(i))
             keyframes += 1
             if keyframes % OPTIMIZE_EVERY == 0:
@@ -442,7 +469,7 @@ def serve_live(torch, np, cfg, seq, dev, workdir, resume_at=RESUME_AT, ab_scans=
                     backend.optimize()
                     sess.apply_loop_closure(backend.correction_for_latest(), backend.last_corrections)
                     pushes.append(i)
-            add_counts(per_closure, launch_delta(tnn, tmom, before))
+            add_counts(per_closure, launch_delta(before))
     wall = time.perf_counter() - t_run
     served = (build.builds, len(build._libs), tnn.buffer_allocations)
     poses = np.stack(poses)
@@ -526,19 +553,19 @@ def run_slam(torch, np, cfg, seq, dev, workdir, resume_at=RESUME_AT, ab_scans=RE
     from locus_tpu_torch.backend import PoseGraphBackend
     from locus_tpu_torch.config import RegistrationConfig
     from locus_tpu_torch.ops import dispatch
-    from locus_tpu_torch.ops.kernels import moments as tmom, nn as tnn
+    from locus_tpu_torch.ops.kernels import read_launches, reset_launches
 
     def new_backend():
         return PoseGraphBackend(registration=RegistrationConfig(**LOOP_REGISTRATION), device=dev, **LOOP_BACKEND)
 
     n = len(seq)
     backend = new_backend()
-    reset_launches(tnn, tmom)
+    reset_launches()
     t0 = time.perf_counter()
     poses, outputs, report = runner.run_sequence(seq, cfg, backend=backend, backend_optimize_every=OPTIMIZE_EVERY,
                                                  device=dev)
     wall = time.perf_counter() - t0
-    launches = read_launches(tnn, tmom)
+    launches = read_launches()
     ate, final = trajectory_errors(np, poses, seq.gt_poses)
     dur = np.asarray(report.durations) * 1e3
     # the first resume_at scans again, checkpointed, resumed for RESUME_SCANS
@@ -757,7 +784,7 @@ def run_husky(torch, np, cfg, dev, data, alive_by=HUSKY_ALIVE_BY, ab_scans=REF_S
     with the merged cloud of the scan after it (the kernels' inputs)."""
     from locus_tpu_torch.metrics import RateReport
     from locus_tpu_torch.ops import dispatch
-    from locus_tpu_torch.ops.kernels import moments as tmom, nn as tnn
+    from locus_tpu_torch.ops.kernels import read_launches, reset_launches
 
     lidars, scans, seq, dead_scans = data["lidars"], data["scans"], data["seq"], data["dead_scans"]
     with dispatch.no_kernels():
@@ -766,11 +793,11 @@ def run_husky(torch, np, cfg, dev, data, alive_by=HUSKY_ALIVE_BY, ab_scans=REF_S
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    reset_launches(tnn, tmom)
+    reset_launches()
     t0 = time.perf_counter()
     poses, outs, merged, alive, _ = husky_replay(torch, np, cfg, scans, seq, lidars, dev, report=report)
     wall = time.perf_counter() - t0
-    launches = read_launches(tnn, tmom)
+    launches = read_launches()
     dur = np.asarray(report.durations)
     window = dur[-RATE_WINDOW:]
     ate, final = trajectory_errors(np, poses, seq.gt_poses)
@@ -998,6 +1025,8 @@ def tool_commands(workdir):
         ("nn_bench_shards", "torch_nn_bench.py", ["--bt", 2048, "--shards", 2]),
         ("scaling_bench", "torch_scaling_bench.py", ["--ranks", 1, 2, 4, "--production"]),
         ("collective_budget", "torch_collective_budget.py", ["--ranks", 2, "--scans", COLLECTIVE_SCANS]),
+        *((name, script, args) for name, (script, args, _) in EXPERIMENTS.items()),
+        ("quickstart", "../examples/torch_quickstart.py", ["--scans", QUICKSTART_SCANS]),
     ]
 
 
@@ -1011,7 +1040,7 @@ def run_tool(name, script, args, workdir, timeout=TOOL_TIMEOUT_S):
     out = workdir / f"{name}.json"
     out.unlink(missing_ok=True)
     argv = [sys.executable, str(ROOT / "tools" / script), *map(str, args)]
-    if name != "simulate_sensor_drops":
+    if name not in ("simulate_sensor_drops", "quickstart"):
         argv += ["--json", str(out)]
     t0 = time.perf_counter()
     with open(workdir / f"{name}.out", "w") as so, open(workdir / f"{name}.err", "w+") as se:
@@ -1047,6 +1076,8 @@ def run_tools(np, workdir):
             result = {"odom_samples": [len(src.odom_stamps), len(dst.odom_stamps)],
                       "imu_samples": [len(src.imu_stamps), len(dst.imu_stamps)],
                       "scans_kept": bool(np.array_equal(src.scans, dst.scans))}
+        if name == "quickstart" and rc == 0:
+            result = quickstart_result(workdir / f"{name}.out")
         tools[name] = {"rc": rc, "seconds": seconds, "result": result} | ({"stderr_tail": err} if rc else {})
         emit({"phase": "tools", "tool": name} | tools[name])
     return {"phase": "tools", "tools": {
@@ -1054,11 +1085,33 @@ def run_tools(np, workdir):
         for k, v in tools.items()}}, tools
 
 
+def quickstart_result(path):
+    """The quickstart's printed lines ("rate: x Hz", "ATE: x m",
+    "keyframes: n", "map points: n") as a record."""
+    out = {}
+    for line in path.read_text().splitlines():
+        key, _, value = line.partition(":")
+        if key in ("rate", "ATE", "keyframes", "map points"):
+            out[key.replace(" ", "_")] = float(value.split()[0])
+    return out
+
+
+def experiment_rows(name, result):
+    """An experiment's row of each variant (tools/torch_exp_*.py: exp_ablate
+    and exp_steady keep them under "rows", the others beside the JAX
+    tool's other keys)."""
+    rows = result.get("rows", result) if name in ("exp_ablate", "exp_steady") else result
+    return {v: rows[v] for v in EXPERIMENTS[name][2] if isinstance(rows.get(v), dict)}
+
+
 def tool_run_launches(name, result):
     """The launch counts of a tool's main run, one dict a process (a rank
-    tool's ranks, over its rank counts), each counted from 0 by the tool."""
+    tool's ranks, over its rank counts) or an experiment's variant, each
+    counted from 0 by the tool."""
     if not result:
         return []
+    if name in EXPERIMENTS:
+        return [row["launches"] for row in experiment_rows(name, result).values()]
     if name == "scaling_bench":
         return [ranks for row in result["results"].values() for ranks in row["launches_per_rank"]]
     if name == "collective_budget":
@@ -1066,14 +1119,14 @@ def tool_run_launches(name, result):
     return [result["launches"]] if "launches" in result else []
 
 
-def tools_problems(tools):
-    """What fails phase 16."""
+def tools_problems(tools, pipeline_poses):
+    """What fails phase 16 (`pipeline_poses`: phase 5's)."""
     problems = []
     for name, t in tools.items():
         r = t["result"]
         if t["rc"] != 0 or r is None:
             problems.append(f"tools: {name} exited {t['rc']}: {t.get('stderr_tail', '')[-500:]}")
-        elif name != "simulate_sensor_drops" and not (r.get("device") and r.get("power_limit_w")):
+        elif name not in ("simulate_sensor_drops", "quickstart") and not (r.get("device") and r.get("power_limit_w")):
             problems.append(f"tools: {name} names no card or power limit: {r.get('device')}, {r.get('power_limit_w')}")
     ok = {name: t["result"] for name, t in tools.items() if t["rc"] == 0 and t["result"] is not None}
     if "bench" in ok and not ok["bench"]["ate_m"] <= ATE_LIMIT_M:
@@ -1094,11 +1147,39 @@ def tools_problems(tools):
         runs = tool_run_launches(name, ok.get(name))
         if name in ok and not (runs and all(run.get(k, 0) > 0 for run in runs for k in kernels)):
             problems.append(f"tools: {name}'s main run did not launch {kernels}: {runs}")
+    for name, (_, _, variants) in EXPERIMENTS.items():
+        if name in ok:
+            missing = sorted(set(variants) - set(experiment_rows(name, ok[name])))
+            if missing:
+                problems.append(f"tools: {name} has no row for {missing}")
+    if "exp_gap" in ok:
+        gap = experiment_pose_gap(ok["exp_gap"], pipeline_poses)
+        ok["exp_gap"]["default_vs_pipeline_m"] = gap
+        if not gap <= EXP_POSE_LIMIT_M:
+            problems.append(f"tools: exp_gap's default variant lies {gap} m from phase 5's poses")
+    for world in ("tunnel", "urban", "cave"):
+        ate = ok["exp_inner"]["inner3"].get(f"ate_{world}", math.inf) if "exp_inner" in ok else 0.0
+        if not ate <= ATE_LIMIT_M:
+            problems.append(f"tools: exp_inner's inner-3 {world} ATE {ate} m exceeds {ATE_LIMIT_M} m")
+    quick = ok.get("quickstart")
+    if quick is not None and not (quick.get("ATE", math.inf) <= ATE_LIMIT_M and quick.get("map_points", 0) > 0):
+        problems.append(f"tools: the quickstart's run: {quick}")
     drops = ok.get("simulate_sensor_drops")
     if drops and not (drops["odom_samples"][1] < drops["odom_samples"][0]
                       and drops["imu_samples"][1] < drops["imu_samples"][0] and drops["scans_kept"]):
         problems.append(f"tools: the sensor-drop copy dropped no samples or changed the scans: {drops}")
     return problems
+
+
+def experiment_pose_gap(result, pipeline_poses):
+    """The largest translation gap (m) between an experiment's default
+    poses (its replay from a fresh state) and phase 5's for the same
+    scans."""
+    import numpy as np
+
+    poses = np.asarray(result["default_poses"], np.float64)
+    ref = np.asarray(pipeline_poses, np.float64)[: poses.shape[0]]
+    return float(np.linalg.norm(poses[:, :3, 3] - ref[:, :3, 3], axis=1).max())
 
 
 def device_time_ms(torch, fn, reps=20, warmup=3):
@@ -1329,40 +1410,19 @@ def kernel_checks(torch, tnn, tmom, build, cfg, pc, state, suffix):
     return all(oks), results
 
 
-def reset_launches(tnn, tmom):
-    for counts in (tnn.launches, tnn.batched_launches):
-        counts.update({bt: 0 for bt in counts})
-    tnn.other_launches.clear()
-    tmom.launches = tmom.batched_launches = tmom.dense_launches = tmom.dense_batched_launches = 0
-
-
-def read_launches(tnn, tmom):
-    """The counters by row name; B2/B3 at another chunk size than the
-    pipeline's two (a sweep's) as `nn_visits[_batched]_bt<size>`."""
-    return {
-        "moments_visits": tmom.launches,
-        "nn_visits_scan": tnn.launches[tnn.SCAN_BT],
-        "nn_visits_map": tnn.launches[tnn.BT],
-        "nn_visits_batched_scan": tnn.batched_launches[tnn.SCAN_BT],
-        "nn_visits_batched_map": tnn.batched_launches[tnn.BT],
-        "moments_visits_batched": tmom.batched_launches,
-        "moments_dense": tmom.dense_launches,
-        "moments_dense_batched": tmom.dense_batched_launches,
-    } | {f"nn_visits{'_batched' if batched else ''}_bt{bt}": n for (batched, bt), n in tnn.other_launches.items()}
-
-
-def run_path(torch, np, runner, tnn, tmom, cfg, seq, ref_poses, name, dev):
+def run_path(torch, np, runner, cfg, seq, ref_poses, name, dev):
     """One path's PATH_SCANS-scan replay through the kernels, launch counts
     of this run only, and its first poses against its plain reference."""
+    from locus_tpu_torch.ops.kernels import read_launches, reset_launches
     from locus_tpu_torch.metrics import ate_rmse
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(tnn, tmom)
+    reset_launches()
     t0 = time.perf_counter()
     poses, outputs, report = runner.run_sequence(seq, cfg, max_scans=PATH_SCANS, device=dev)
     wall = time.perf_counter() - t0
-    launches = read_launches(tnn, tmom)
+    launches = read_launches()
     dur = np.asarray(report.durations)
     window = dur[-RATE_WINDOW:]
     ate = ate_rmse(poses[:, :3, 3], seq.gt_poses[: poses.shape[0], :3, 3], align=False)
@@ -1383,11 +1443,12 @@ def run_path(torch, np, runner, tnn, tmom, cfg, seq, ref_poses, name, dev):
     }
 
 
-def run_batched_path(torch, np, runner, pipeline, tnn, tmom, cfg, seqs, ref_poses, name, dev):
+def run_batched_path(torch, np, runner, pipeline, cfg, seqs, ref_poses, name, dev):
     """One path's batched replay of len(seqs) robots through the kernels,
     launch counts of this run only; each robot also alone through
     make_scan_replay (timed); the first ticks against the plain reference
     (`ref_poses` (REF_SCANS, B, 4, 4))."""
+    from locus_tpu_torch.ops.kernels import read_launches, reset_launches
     from locus_tpu_torch.metrics import RateReport, ate_rmse
 
     robots, ticks = len(seqs), len(seqs[0])
@@ -1405,11 +1466,11 @@ def run_batched_path(torch, np, runner, pipeline, tnn, tmom, cfg, seqs, ref_pose
     report, outs = RateReport(), []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(tnn, tmom)
+    reset_launches()
     t0 = time.perf_counter()
     states, (poses, _, sizes) = runner.make_batched_replay(cfg)(states, stacked, report=report, outputs=outs)
     wall = time.perf_counter() - t0
-    launches = read_launches(tnn, tmom)
+    launches = read_launches()
     poses = poses.cpu().numpy().astype(np.float64)           # (T, B, 4, 4)
     dur = np.asarray(report.durations)
     window = dur[-TICK_WINDOW:]
@@ -1484,7 +1545,7 @@ def main() -> int:
     from locus_tpu_torch.io.dataset import make_tunnel_sequence
     from locus_tpu_torch.metrics import RateReport, ate_rmse
     from locus_tpu_torch.ops import dispatch
-    from locus_tpu_torch.ops.kernels import build, moments as tmom, nn as tnn
+    from locus_tpu_torch.ops.kernels import build, moments as tmom, nn as tnn, read_launches, reset_launches
 
     record = {}
     dev = torch.device("cuda")
@@ -1615,11 +1676,11 @@ def main() -> int:
         # 5. pipeline through the kernels, launch counts of this run only
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_launches(tnn, tmom)
+        reset_launches()
         t0 = time.perf_counter()
         poses, outputs, report = runner.run_sequence(seq, cfg, device=dev)
         wall = time.perf_counter() - t0
-        launches = read_launches(tnn, tmom)
+        launches = read_launches()
         dur = np.asarray(report.durations)
         gt = seq.gt_poses[: poses.shape[0]]
         ate = ate_rmse(poses[:, :3, 3], gt[:, :3, 3], align=False)
@@ -1661,11 +1722,11 @@ def main() -> int:
         ticks = RateReport()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_launches(tnn, tmom)
+        reset_launches()
         t0 = time.perf_counter()
         states, (bposes, _, bsizes) = runner.make_batched_replay(cfg)(states, packed, report=ticks)
         wall = time.perf_counter() - t0
-        blaunches = read_launches(tnn, tmom)
+        blaunches = read_launches()
         bposes = bposes.cpu().numpy().astype(np.float64)          # (T, B, 4, 4)
         dur = np.asarray(ticks.durations)
         ates = [ate_rmse(bposes[:, b, :3, 3], s.gt_poses[:ROBOT_SCANS, :3, 3], align=False)
@@ -1698,7 +1759,7 @@ def main() -> int:
         # runs, then any path's failure fails the script
         problems = []
         for name, expected in PATHS.items():
-            record[name] = run_path(torch, np, runner, tnn, tmom, path_config(cfg, name), path_seqs[name],
+            record[name] = run_path(torch, np, runner, path_config(cfg, name), path_seqs[name],
                                     path_refs[name][0], name, dev)
             emit(record[name])
             launches, ate = record[name]["launches"], record[name]["ate_m"]
@@ -1753,7 +1814,7 @@ def main() -> int:
         problems = []
         for name, expected in BATCHED_PATHS.items():
             ref_poses_b = batched_refs[name][1][0].cpu().numpy().astype(np.float64)
-            rec = run_batched_path(torch, np, runner, pipeline, tnn, tmom, path_config(cfg, name),
+            rec = run_batched_path(torch, np, runner, pipeline, path_config(cfg, name),
                                    batched_seqs[name], ref_poses_b, name, dev)
             record[rec["phase"]] = rec
             emit(rec)
@@ -1785,7 +1846,7 @@ def main() -> int:
         record["tools"], tools = run_tools(np, workdir / "tools")
         record["tools"]["seconds"] = time.perf_counter() - t0
         record["tools"]["results"] = {k: v["result"] for k, v in tools.items()}
-        problems = tools_problems(tools)
+        problems = tools_problems(tools, poses)
         if problems:
             raise RuntimeError("; ".join(problems))
     except Exception:

@@ -41,7 +41,8 @@ D2_ATOL = 1e-5
 BENCH_FIELDS = ("metric", "value", "unit", "vs_baseline", "estimator", "best", "mad", "rates", "ate_m", "scans",
                 "map_capacity", "scan_capacity")
 NEW_TOOLS = ("torch_bench", "torch_eval_suite", "torch_latency_bench", "torch_profiler", "torch_memory_report",
-             "torch_nn_bench", "torch_scaling_bench", "torch_collective_budget")
+             "torch_nn_bench", "torch_scaling_bench", "torch_collective_budget", "torch_exp_ablate", "torch_exp_gap",
+             "torch_exp_gap2", "torch_exp_inner", "torch_exp_steady")
 
 
 def _jax_production_config():

@@ -29,7 +29,8 @@ def _imports(path: Path):
 # the port's tools and their shared helpers, apart from the two tools that
 # compare it with JAX by design
 PORT_TOOLS = sorted(p for p in (ROOT / "tools").glob("torch_*.py")
-                    if p.name not in ("torch_parity.py", "torch_chaos_probe.py")) + [ROOT / "tools" / "_torch_tool.py"]
+                    if p.name not in ("torch_parity.py", "torch_chaos_probe.py")) + [ROOT / "tools" / "_torch_tool.py",
+                                                                                     ROOT / "examples" / "torch_quickstart.py"]
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + PORT_TOOLS,

@@ -165,13 +165,12 @@ def timing(report, window):
 
 def launches(reset):
     """Reset (reset=True) or read the kernels' launch counters."""
-    import chip_smoke
-    from locus_tpu_torch.ops.kernels import moments as tmom, nn as tnn
+    from locus_tpu_torch.ops.kernels import read_launches, reset_launches
 
     if reset:
-        chip_smoke.reset_launches(tnn, tmom)
+        reset_launches()
         return None
-    return chip_smoke.read_launches(tnn, tmom)
+    return read_launches()
 
 
 @contextlib.contextmanager

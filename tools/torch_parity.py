@@ -37,6 +37,12 @@ differences, the largest rotation difference, and each side's ATE
 tunnel it adds, as before, JAX's Pallas path (interpret mode) and the
 golden sequence through the port.
 
+`--variant NAME` applies one of the replay experiments' config ablations
+(tools/torch_exp_gap.py's and torch_exp_ablate.py's tables) to the
+config; `--iterations` adds each package's per-scan outer iterations of
+both registration stages over a chained replay (tools/exp_gap.py's
+iteration lists).
+
 `--pallas` adds JAX's Pallas path (interpret mode) on any tunnel: JAX's
 own XLA-vs-Pallas spread, the measure of its rounding. `--steps` also
 steps both packages once from JAX's state before every scan (converted
@@ -50,7 +56,8 @@ in f32 and with every coordinate in float64, beside JAX's f32 result. A
 port that computes the same step stays at f32 noise there however far the
 chained replays drift apart.
 
-    JAX_PLATFORMS=cpu python tools/torch_parity.py [--config ndt] [--tunnel production] [--steps] [--pallas]
+    JAX_PLATFORMS=cpu python tools/torch_parity.py [--config ndt] [--tunnel production] [--variant inner_2]
+        [--steps] [--iterations] [--pallas]
 """
 import argparse
 import dataclasses
@@ -110,6 +117,36 @@ def one_steps(seq, cfg, tcfg, tseq, n):
             "map_size": [int(tout.map_size), int(jout.map_size)],
         })
     return rows
+
+
+def iteration_lists(seq, cfg, tcfg, tseq, n):
+    """Both packages' chained replays of the first n scans, step by step
+    (JAX's `make_replay_step`, the port's `replay_step`): each one's
+    per-scan outer iterations of the scan-to-scan and scan-to-submap
+    registrations (tools/exp_gap.py's odom_iters and loc_iters)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from locus_tpu import pipeline as jpl
+    from locus_tpu import runner as jrunner
+    from locus_tpu_torch import pipeline as tpl
+    from locus_tpu_torch import runner as trunner
+
+    rstep = jrunner.make_replay_step(cfg)
+    jst = jpl.init_state_from_config(cfg, initial_pose=jnp.asarray(seq.gt_poses[0], jnp.float32))
+    jst = jax.tree_util.tree_map(lambda x: jnp.array(x, copy=True), jst)
+    tst = tpl.init_state_from_config(tcfg, initial_pose=torch.as_tensor(seq.gt_poses[0], dtype=torch.float32),
+                                     device="cpu")
+    lists = {k: [] for k in ("jax_odom_iters", "jax_loc_iters", "port_odom_iters", "port_loc_iters")}
+    for i in range(n):
+        args = trunner.scan_inputs(tseq, i, tcfg, "cpu")
+        tst, tout = trunner.replay_step(tst, *args, cfg=tcfg)
+        jst, jout = rstep(jst, *[jnp.asarray(a.numpy()) for a in args])
+        for side, out in (("jax", jout), ("port", tout)):
+            lists[f"{side}_odom_iters"].append(int(out.odom_iterations))
+            lists[f"{side}_loc_iters"].append(int(out.loc_iterations))
+    return lists
 
 
 def preprocess_stage(cfg, tcfg, jst, tst, args):
@@ -289,6 +326,10 @@ def main() -> int:
     ap.add_argument("--threads", type=int, default=4)
     ap.add_argument("--pallas", action="store_true", help="add JAX's Pallas path (interpret mode)")
     ap.add_argument("--steps", action="store_true", help="one step of each from JAX's state before every scan")
+    ap.add_argument("--iterations", action="store_true",
+                    help="each package's per-scan outer iterations over its chained replay")
+    ap.add_argument("--variant", default=None,
+                    help="a variant of tools/torch_exp_gap.py or torch_exp_ablate.py applied to the config")
     args = ap.parse_args()
 
     import numpy as np
@@ -301,6 +342,7 @@ def main() -> int:
     from locus_tpu.metrics import ate_rmse
     from locus_tpu.ops.dispatch import force_pallas
     from locus_tpu.runner import run_sequence as jax_run
+    from locus_tpu_torch.config import production_config
     from locus_tpu_torch.convert import config_from_dict
     from locus_tpu_torch.io.dataset import Sequence as TSequence
     from locus_tpu_torch.runner import run_sequence as port_run
@@ -330,6 +372,13 @@ def main() -> int:
         if args.config == "features":
             cfg = cfg.replace(filtering=dataclasses.replace(cfg.filtering, feature_width=900))
         seq = make_world_sequence("tunnel", num_scans=SCANS, azimuth_steps=900)
+    if args.variant:
+        sys.path.insert(0, str(ROOT / "tools"))
+        import _torch_tool
+        import torch_exp_ablate
+        import torch_exp_gap
+
+        cfg = _torch_tool.ablated(cfg, **(torch_exp_ablate.VARIANTS | torch_exp_gap.VARIANTS)[args.variant])
     tcfg = config_from_dict(dataclasses.asdict(cfg))
     xla, _, _ = jax_run(seq, cfg, max_scans=args.scans)
     port, _, _ = port_run(port_seq(seq), tcfg, max_scans=args.scans, device="cpu")
@@ -342,13 +391,15 @@ def main() -> int:
         return ate_rmse(p[:, :3, 3], seq.gt_poses[:n, :3, 3], align=False)
 
     out = {
-        "config": args.config, "tunnel": args.tunnel, "scans": n,
+        "config": args.config, "variant": args.variant, "tunnel": args.tunnel, "scans": n,
         "port_vs_jax_xla_m": diff(port, xla),
         "port_vs_jax_xla_max_rotation_entry": float(np.abs(port[:, :3, :3] - xla[:, :3, :3]).max()),
         "ate_jax_xla_m": ate(xla), "ate_port_m": ate(port),
     }
     split = [i for i, d in enumerate(out["port_vs_jax_xla_m"]) if d > SPLIT_M]
     out["first_scan_split_over_1e-3_m"] = split[0] if split else None
+    if args.iterations:
+        out |= iteration_lists(seq, cfg, tcfg, port_seq(seq), n)
     if args.steps:
         out["one_step_from_jax_state"] = one_steps(seq, cfg, tcfg, port_seq(seq), n)
     if args.pallas and not (args.config == "gicp" and args.tunnel == "small"):
