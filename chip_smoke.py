@@ -33,6 +33,16 @@ Phases, each printing one JSON line:
                with launch counts reset just before and read just after;
                scans/s over the last 32 scans and ATE against ground truth
  6. ab         the pipeline's first 8 poses against the reference run's
+ 6b. compiled  phase 5's replay runs the captured step (one CUDA graph a
+               scan: runner.make_replay_step, the GICP trips gated on the
+               device); this phase replays the same 48 scans through the
+               eager runner.replay_step in the same call and holds the
+               two to equal poses (0.0 m), equal ATE and equal launches of
+               B1 and B2; for each it prints scans/s over the last 32, and
+               from a trace of the last 8 scans from the same state the
+               device's busy ms and idle share, the kernels on the device,
+               the launches and graph launches from the host and the host
+               syncs a scan
  7. batched    4 robots, 24 scans each, through runner.make_batched_replay
                (one batched step per tick) with launch counts reset just
                before and read just after; every robot also through
@@ -145,6 +155,9 @@ Phases, each printing one JSON line:
                default poses within 1e-4 m of
                phase 5's, exp_inner's inner-3 worlds within 0.05 m ATE)
                and examples/torch_quickstart.py at QUICKSTART_SCANS scans
+Every phase's line says whether its replays ran the captured step
+(`captured`; the batched, live, husky, NDT, features, voxel-hash and
+sharded runs step eagerly, later slices of the capture).
 A launch of ranks that outlasts its deadline is ended and fails its phase.
 Then the `kernels` summary line (launches summed over every path, the
 batched paths' on the B3/B4 rows (B3 map on the voxel-hash operand on
@@ -174,6 +187,9 @@ PEAK_FP32_OPS = 33.5e12
 PEAK_BYTES = 3.35e12
 
 SCANS, REF_SCANS, RATE_WINDOW = 48, 8, 32
+COMPILED_TRACE = 8   # scans of each replay the compiled phase traces
+COMPILED_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel")
+COMPILED_SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 ROBOTS, ROBOT_SCANS, TICK_WINDOW = 4, 24, 16
 ROBOT_STEPS = (0.30, 0.35, 0.40, 0.45)
 ATE_LIMIT_M = 0.05
@@ -270,8 +286,13 @@ TOOL_KERNELS = {
 DROP_GAPS = (("--odom-gaps", "0.5:0.9"), ("--imu-gaps", "1.0:1.2"))
 
 
+START = time.perf_counter()
+
+
 def emit(record: dict) -> None:
-    print(json.dumps(record), flush=True)
+    """Print `record` as one JSON line, with the seconds since the script
+    started (`t_s`, for the phases' share of the time limit)."""
+    print(json.dumps(record | {"t_s": time.perf_counter() - START}), flush=True)
 
 
 def path_config(cfg, name):
@@ -488,7 +509,7 @@ def serve_live(torch, np, cfg, seq, dev, workdir, resume_at=RESUME_AT, ab_scans=
     launches = dict(per_scan)
     add_counts(launches, per_closure)
     record = {
-        "phase": "live", "scans": n, "wall_s": wall,
+        "phase": "live", "scans": n, "wall_s": wall, "captured": False,   # LiveSession steps eagerly
         "latency_ms_p50": float(np.median(lat_ms)), "latency_ms_max": float(lat_ms.max()),
         "latency_ms_per_scan": [round(float(x), 3) for x in lat_ms],
         "latency_ms_p95": float(np.percentile(lat_ms, 95)),
@@ -583,7 +604,7 @@ def run_slam(torch, np, cfg, seq, dev, workdir, resume_at=RESUME_AT, ab_scans=RE
                                           backend_optimize_every=OPTIMIZE_EVERY, device=dev)
     ab = np.abs(poses[:ab_scans, :3, 3] - plain[:, :3, 3]).max(axis=1)
     return {
-        "phase": "slam", "scans": n, "wall_s": wall,
+        "phase": "slam", "scans": n, "wall_s": wall, "captured": report.captured,
         "scans_per_s": n / wall, "step_ms_p50": float(np.median(dur)), "step_ms_max": float(dur.max()),
         "keyframes": len(backend.keyframes), "loops_found": backend.loops_found,
         "loop_factor_pairs": loop_pairs(backend),
@@ -807,7 +828,7 @@ def run_husky(torch, np, cfg, dev, data, alive_by=HUSKY_ALIVE_BY, ab_scans=REF_S
     dead[dead_scans[0]: dead_scans[1] + 1] = True
     all_alive = alive.all(axis=1)
     record = {
-        "phase": "husky", "scans": len(scans), "lidars": list(lidars),
+        "phase": "husky", "scans": len(scans), "lidars": list(lidars), "captured": False,   # the eager replay_step
         **{k: data[k] for k in ("azimuth_steps", "bag_bytes", "bag_write_s", "bag_parse_s")}, "wall_s": wall,
         "scans_per_s_last32": window.size / float(window.sum()),
         "ms_per_scan_p50_last32": float(np.median(window) * 1e3), "ms_per_scan_max_last32": float(window.max() * 1e3),
@@ -903,7 +924,7 @@ def run_sharded(np, workdir, seq, poses, sizes, cfg):
                         "--resume-at", SHARDED_RESUME_AT, "--ref", workdir / "sharded" / "pipeline_poses.npz",
                         "--trace-collectives", *common)
     return {
-        "phase": "sharded", "scans": len(seq), "mesh": run["mesh"], "backend": run["backend"],
+        "phase": "sharded", "scans": len(seq), "mesh": run["mesh"], "backend": run["backend"], "captured": False,
         "device_name": run.get("device_name"), "map_capacity": cfg.mapper.map_capacity,
         "max_translation_vs_single_m": max(r["max_translation_err_m"] for r in run["ranks"]),
         "max_pose_entry_vs_single": run["max_pose_err"], "bit_equal_vs_single": run["bit_equal"],
@@ -948,6 +969,7 @@ def run_sharded_batched(np, workdir, robot_seqs, single_poses):
                     "--window", TICK_WINDOW)
     return {
         "phase": "sharded_batched", "robots": len(robot_seqs), "mesh": run["mesh"], "backend": run["backend"],
+        "captured": False,
         "owned_rows": run["owned_rows"], "max_pose_entry_vs_single": run["max_pose_err"],
         "bit_equal_vs_single": run["bit_equal"],
         "max_translation_vs_single_m": max(r["max_translation_err_m"] for r in run["ranks"]),
@@ -979,6 +1001,7 @@ def run_sharded_live(np, workdir, circuit, live_poses):
                     "production", "--seq", seq_path, "--ref", ref)
     return {
         "phase": "sharded_live", "scans": len(circuit), "mesh": run["mesh"], "backend": run["backend"],
+        "captured": False,
         **{k: run[k] for k in ("closures_pushed_back", "ate_m", "max_translation_err_before_first_closure_m",
                                "max_pose_err_before_first_closure", "max_translation_err_m", "ranks_agree")},
         **per_rank(run, "push_back_scans", "loops_found", "latency_ms_p50", "latency_ms_max", "slowest_scans",
@@ -1079,7 +1102,9 @@ def run_tools(np, workdir):
         if name == "quickstart" and rc == 0:
             result = quickstart_result(workdir / f"{name}.out")
         tools[name] = {"rc": rc, "seconds": seconds, "result": result} | ({"stderr_tail": err} if rc else {})
-        emit({"phase": "tools", "tool": name} | tools[name])
+        # the steps the tool ran as CUDA graphs (its device record), None where it keeps no record
+        captured = (result or {}).get("captured")
+        emit({"phase": "tools", "tool": name, "captured": captured} | tools[name])
     return {"phase": "tools", "tools": {
         k: {"rc": v["rc"], "seconds": v["seconds"], "launches": tool_run_launches(k, v["result"])}
         for k, v in tools.items()}}, tools
@@ -1180,6 +1205,104 @@ def experiment_pose_gap(result, pipeline_poses):
     poses = np.asarray(result["default_poses"], np.float64)
     ref = np.asarray(pipeline_poses, np.float64)[: poses.shape[0]]
     return float(np.linalg.norm(poses[:, :3, 3] - ref[:, :3, 3], axis=1).max())
+
+
+def trace_steps(torch, step, state, inputs):
+    """`step(state, *args)` over `inputs` from `state` under torch.profiler:
+    the traced wall time, the device's busy time (every kernel, copy and
+    set on the card) and what the host issued, per scan."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = len(inputs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for args in inputs:
+            state, _ = step(state, *args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.key_averages()
+    host = {e.key: e.count for e in events if e.device_type != cuda}
+
+    def own_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    work = [e for e in events if e.device_type == cuda and not e.key.startswith("stage_") and own_us(e) > 0]
+    return {
+        "traced_scans": n, "traced_wall_ms_per_scan": wall * 1e3 / n,
+        "device_busy_ms_per_scan": sum(own_us(e) for e in work) / 1e3 / n,
+        "device_ops_per_scan": sum(e.count for e in work) / n,
+        "host_kernel_launches_per_scan": sum(host.get(k, 0) for k in COMPILED_LAUNCHES) / n,
+        "graph_launches_per_scan": host.get("cudaGraphLaunch", 0) / n,
+        "memcpy_calls_per_scan": host.get("cudaMemcpyAsync", 0) / n,
+        "syncs_per_scan": sum(host.get(k, 0) for k in COMPILED_SYNCS) / n,
+    }
+
+
+def run_compiled(torch, np, runner, pipeline, cfg, seq, pipeline_rec, captured_poses, dev):
+    """Phase 5's scans again through the eager `runner.replay_step`, in the
+    same call: poses, ATE, launches and rate beside phase 5's captured
+    replay, then the last COMPILED_TRACE scans of each traced from the same
+    state. Returns the phase record."""
+    import functools
+
+    from locus_tpu_torch.metrics import ate_rmse
+    from locus_tpu_torch.ops.kernels import read_launches, reset_launches
+
+    n = len(seq)
+    inputs = [runner.scan_inputs(seq, i, cfg, dev) for i in range(n)]
+    eager = functools.partial(runner.replay_step, cfg=cfg)
+    state = pipeline.init_state_from_config(cfg, initial_pose=torch.as_tensor(seq.gt_poses[0], dtype=torch.float32),
+                                            device=dev)
+    first = n - COMPILED_TRACE
+    poses, dur = [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    for i, args in enumerate(inputs):
+        if i == first:
+            start = state          # the eager step leaves its input state as it was
+        t0 = time.perf_counter()
+        state, out = eager(state, *args)
+        torch.cuda.synchronize()
+        dur.append(time.perf_counter() - t0)
+        poses.append(out.pose)
+    launches = read_launches()
+    poses = torch.stack(poses).cpu().numpy().astype(np.float64)
+    dur = np.asarray(dur)
+    ate = ate_rmse(poses[:, :3, 3], seq.gt_poses[:n, :3, 3], align=False)
+    eager_rate = RATE_WINDOW / float(dur[-RATE_WINDOW:].sum())
+    # the traced windows: the captured step is captured on its first call,
+    # before its window, and takes the eager run's state there
+    rstep = runner.make_replay_step(cfg)
+    rstep(start, *inputs[first])
+    traced = {"eager": trace_steps(torch, eager, start, inputs[first:]),
+              "captured": trace_steps(torch, rstep, start, inputs[first:])}
+    for name, ms in (("eager", 1e3 / eager_rate), ("captured", 1e3 / pipeline_rec["scans_per_s_last32"])):
+        traced[name]["device_idle_share"] = 1.0 - traced[name]["device_busy_ms_per_scan"] / ms
+    return {
+        "phase": "compiled", "scans": n, "captured": pipeline_rec["captured"],
+        "scans_per_s_last32": {"captured": pipeline_rec["scans_per_s_last32"], "eager": eager_rate},
+        "captured_over_eager": pipeline_rec["scans_per_s_last32"] / eager_rate,
+        "ate_m": {"captured": pipeline_rec["ate_m"], "eager": ate},
+        "max_pose_diff": float(np.abs(captured_poses - poses).max()),
+        "launches_per_scan": {"captured": pipeline_rec["launches_per_scan"],
+                              "eager": {k: v / n for k, v in launches.items()}},
+        "launches_equal": pipeline_rec["launches"] == launches,
+        "capture_seconds": rstep.graph.setup_seconds,
+        "traced": traced,
+    }
+
+
+def compiled_problems(record):
+    problems = []
+    if record["max_pose_diff"] != 0.0:
+        problems.append(f"compiled: captured and eager poses differ by {record['max_pose_diff']}")
+    if record["ate_m"]["captured"] != record["ate_m"]["eager"]:
+        problems.append(f"compiled: ATE captured {record['ate_m']['captured']} != eager {record['ate_m']['eager']}")
+    if not record["launches_equal"]:
+        problems.append(f"compiled: launches differ: {record['launches_per_scan']}")
+    return problems
 
 
 def device_time_ms(torch, fn, reps=20, warmup=3):
@@ -1428,7 +1551,7 @@ def run_path(torch, np, runner, cfg, seq, ref_poses, name, dev):
     ate = ate_rmse(poses[:, :3, 3], seq.gt_poses[: poses.shape[0], :3, 3], align=False)
     ab = np.abs(poses[:REF_SCANS, :3, 3] - ref_poses[:, :3, 3]).max(axis=1)
     return {
-        "phase": name, "scans": int(poses.shape[0]),
+        "phase": name, "scans": int(poses.shape[0]), "captured": report.captured,
         "sequence": PATH_SEQUENCE_NAMES.get(name, "make_tunnel_sequence(azimuth_steps=1800, step=0.35, seed=0)"),
         "scans_per_s_last32": window.size / float(window.sum()),
         "ms_per_scan_p50_last32": float(np.median(window) * 1e3),
@@ -1480,7 +1603,8 @@ def run_batched_path(torch, np, runner, pipeline, cfg, seqs, ref_poses, name, de
     ab = np.abs(poses[:REF_SCANS, :, :3, 3] - ref_poses[..., :3, 3]).max(axis=(1, 2))
     loc_its = np.stack([o.loc_iterations.cpu().numpy() for o in outs])        # (T, B)
     return {
-        "phase": f"batched_{name}", "robots": robots, "ticks": int(dur.size),
+        "phase": f"batched_{name}", "robots": robots, "ticks": int(dur.size), "captured": report.captured,
+        "single_captured": timing.captured,
         "sequence": ROBOT_SEQUENCE_NAMES[name],
         "ticks_per_s_last16": rate, "robot_scans_per_s_last16": robots * rate,
         "ms_per_tick_p50_last16": float(np.median(window) * 1e3), "ms_per_tick_max_last16": float(window.max() * 1e3),
@@ -1585,7 +1709,7 @@ def main() -> int:
         # 3. reference: the plain versions on the card
         t0 = time.perf_counter()
         with dispatch.no_kernels():
-            ref_poses, _, _, ref_state = runner.run_sequence(
+            ref_poses, _, ref_report, ref_state = runner.run_sequence(
                 seq, cfg, max_scans=REF_SCANS, return_state=True, device=dev
             )
         single_s = time.perf_counter() - t0
@@ -1620,6 +1744,10 @@ def main() -> int:
             batched_path_s[name] = time.perf_counter() - t0
         record["reference"] = {
             "phase": "reference", "scans": REF_SCANS, "seconds": single_s, "data_seconds": data_s,
+            # the single reference runs the captured step (the plain versions
+            # inside the graph); the other paths and the batched step run eagerly
+            "captured": {"single": ref_report.captured} | {name: ref[2].captured for name, ref in path_refs.items()}
+            | {"batched": False},
             "batched_ticks": REF_SCANS, "batched_seconds": batched_s, "path_seconds": path_s,
             "batched_path_seconds": batched_path_s,
         }
@@ -1685,7 +1813,7 @@ def main() -> int:
         gt = seq.gt_poses[: poses.shape[0]]
         ate = ate_rmse(poses[:, :3, 3], gt[:, :3, 3], align=False)
         record["pipeline"] = {
-            "phase": "pipeline", "scans": int(poses.shape[0]),
+            "phase": "pipeline", "scans": int(poses.shape[0]), "captured": report.captured,
             "scans_per_s_last32": RATE_WINDOW / float(dur[-RATE_WINDOW:].sum()),
             "ms_per_scan_p50_last32": float(np.median(dur[-RATE_WINDOW:]) * 1e3),
             "ms_per_scan_max_last32": float(dur[-RATE_WINDOW:].max() * 1e3),
@@ -1696,6 +1824,8 @@ def main() -> int:
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         }
         emit(record["pipeline"])
+        if not report.captured:
+            raise RuntimeError("the production replay did not run the captured step")
         if min(launches[k] for k in SINGLE_PATH) <= 0:
             raise RuntimeError(f"the pipeline did not launch every kernel: {launches}")
         if not np.isfinite(poses).all() or ate > ATE_LIMIT_M:
@@ -1711,12 +1841,20 @@ def main() -> int:
         if ab.max() > AB_LIMIT_M:
             raise RuntimeError(f"A/B: kernels and plain versions differ by {ab.max()} m")
 
+        # 6b. compiled: the same scans through the eager step, in this call
+        record["compiled"] = run_compiled(torch, np, runner, pipeline, cfg, seq, record["pipeline"], poses, dev)
+        emit(record["compiled"])
+        problems = compiled_problems(record["compiled"])
+        if problems:
+            raise RuntimeError("; ".join(problems))
+
         # 7. batched: 4 robots through make_batched_replay, each also alone
         single_replay = runner.make_scan_replay(cfg)
         single_poses = []
         for s, p in zip(robot_seqs, robot_packed):
             st = pipeline.init_state(cfg, initial_pose=torch.as_tensor(s.gt_poses[0], dtype=torch.float32), device=dev)
-            single_poses.append(single_replay(st, p)[1][0].cpu().numpy().astype(np.float64))
+            single_report = RateReport()
+            single_poses.append(single_replay(st, p, report=single_report)[1][0].cpu().numpy().astype(np.float64))
         packed = runner.stack_packed(robot_packed)
         states = pipeline.init_states(cfg, init_poses, device=dev)
         ticks = RateReport()
@@ -1735,6 +1873,7 @@ def main() -> int:
         tick_rate = TICK_WINDOW / float(dur[-TICK_WINDOW:].sum())
         record["batched"] = {
             "phase": "batched", "robots": ROBOTS, "ticks": int(dur.size), "steps": list(ROBOT_STEPS),
+            "captured": ticks.captured, "single_captured": single_report.captured,
             "ticks_per_s_last16": tick_rate, "robot_scans_per_s_last16": ROBOTS * tick_rate,
             "ms_per_tick_p50_last16": float(np.median(dur[-TICK_WINDOW:]) * 1e3),
             "ms_per_tick_max_last16": float(dur[-TICK_WINDOW:].max() * 1e3),
@@ -1892,10 +2031,10 @@ def main() -> int:
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))
-    emit({"kernels": summary})
+    print(json.dumps({"kernels": summary}), flush=True)
     print(smi_line, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -18,6 +18,7 @@ import torch
 from locus_tpu_torch.config import FusionConfig
 from locus_tpu_torch.core.cloud import take_rows
 from locus_tpu_torch.geometry import se3
+from locus_tpu_torch.ops import graph
 from locus_tpu_torch.ops.dispatch import resolve_device
 
 # Prior source codes (diagnostics)
@@ -300,7 +301,7 @@ def integrate_sensors(state: FusionState, stamp, now, cfg: FusionConfig, prev_st
     dq = se3.quat_multiply(se3.quat_conjugate(state.imu_quat_prev), imu_quat)
     if cfg.b_convert_imu_to_base_link_frame:
         # dq_base = q_bi . dq_imu . q_bi^-1 (IntegrateImu, Locus.cc:1017-1042)
-        q_bi = torch.tensor(cfg.imu_to_base_quat, dtype=torch.float32, device=dev)
+        q_bi = graph.constant(tuple(cfg.imu_to_base_quat), torch.float32, dev)
         dq = se3.quat_multiply(se3.quat_multiply(q_bi, dq), se3.quat_conjugate(q_bi))
     R_full = se3.quat_to_matrix(dq)
     R_imu = se3.yaw_only_matrix(R_full) if mode == 2 else R_full
@@ -313,15 +314,8 @@ def integrate_sensors(state: FusionState, stamp, now, cfg: FusionConfig, prev_st
         torch.where(use_imu[..., None, None], imu_prior, identity),
     )
     imu_code = PRIOR_IMU_YAW if mode == 2 else PRIOR_IMU
-    source = torch.where(
-        use_odom,
-        torch.tensor(PRIOR_ODOM, dtype=torch.int32, device=dev),
-        torch.where(
-            use_imu,
-            torch.tensor(imu_code, dtype=torch.int32, device=dev),
-            torch.tensor(PRIOR_NONE, dtype=torch.int32, device=dev),
-        ),
-    )
+    none = torch.full(use_odom.shape, PRIOR_NONE, dtype=torch.int32, device=dev)
+    source = torch.where(use_odom, PRIOR_ODOM, torch.where(use_imu, imu_code, none))
     new_state = state._replace(
         odom_pose_prev=torch.where(store_prev[..., None, None], odom_pose, state.odom_pose_prev),
         odom_received=torch.where(choose_odom, state.odom_received | o_found, False),

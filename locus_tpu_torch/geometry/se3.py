@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from locus_tpu_torch.ops import graph
 from locus_tpu_torch.utils.linalg import sum_last
 
 _EPS = 1e-9
@@ -59,7 +60,7 @@ def make_transform(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     T = torch.zeros(batch + (4, 4), dtype=R.dtype, device=R.device)
     T[..., :3, :3] = R
     T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
+    T[..., 3, 3].fill_(1.0)
     return T
 
 
@@ -268,7 +269,7 @@ def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+    return q * graph.constant((1.0, -1.0, -1.0, -1.0), q.dtype, q.device)
 
 
 def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, alpha) -> torch.Tensor:

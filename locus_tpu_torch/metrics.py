@@ -68,10 +68,13 @@ def rpe(
 
 class RateReport:
     """rostopic hz/delay analog: collects per-scan wall latencies and
-    reports rate/percentiles (scripts/profiler.py parity)."""
+    reports rate/percentiles (scripts/profiler.py parity). `captured`:
+    whether the replay that filled it ran its step as one CUDA graph a
+    scan (`runner.make_replay_step`) or eagerly."""
 
     def __init__(self):
         self.durations = []
+        self.captured = False
 
     def add(self, seconds: float):
         self.durations.append(seconds)
@@ -81,6 +84,7 @@ class RateReport:
         if d.size == 0:
             return {}
         return {
+            "captured": self.captured,
             "count": int(d.size),
             "mean_s": float(d.mean()),
             "p50_s": float(np.percentile(d, 50)),

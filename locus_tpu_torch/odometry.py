@@ -12,6 +12,7 @@ import torch
 from locus_tpu_torch.config import RegistrationConfig
 from locus_tpu_torch.core.cloud import PointCloud
 from locus_tpu_torch.geometry import se3
+from locus_tpu_torch.ops import graph
 from locus_tpu_torch.ops.dispatch import resolve_device
 from locus_tpu_torch.registration.gicp import GICPResult
 from locus_tpu_torch.registration.registry import make_registrar
@@ -60,7 +61,7 @@ def project_flat_ground(T: torch.Tensor) -> torch.Tensor:
     """Flat-ground projection (PointCloudOdometry.cc:277-291): zero z and
     keep yaw only."""
     R = se3.yaw_only_matrix(se3.rotation(T))
-    t = se3.translation(T) * torch.tensor([1.0, 1.0, 0.0], device=T.device)
+    t = se3.translation(T) * graph.constant((1.0, 1.0, 0.0), torch.float32, T.device)
     return se3.make_transform(R, t)
 
 

@@ -12,15 +12,15 @@ from __future__ import annotations
 import torch
 
 from locus_tpu_torch.core.cloud import PointCloud
-from locus_tpu_torch.ops import neighbors
+from locus_tpu_torch.ops import graph, neighbors
 from locus_tpu_torch.utils.linalg import tree_sum
 
 
 def crop_box(cloud: PointCloud, box_min, box_max, negative: bool = True) -> PointCloud:
     """Remove (negative=True, the body-filter mode) or keep points inside
     the axis-aligned box."""
-    lo = torch.as_tensor(box_min, dtype=torch.float32, device=cloud.xyz.device)
-    hi = torch.as_tensor(box_max, dtype=torch.float32, device=cloud.xyz.device)
+    lo = graph.constant(tuple(box_min), torch.float32, cloud.xyz.device)
+    hi = graph.constant(tuple(box_max), torch.float32, cloud.xyz.device)
     inside = torch.all((cloud.xyz >= lo) & (cloud.xyz <= hi), dim=-1)
     return cloud.with_mask(~inside if negative else inside)
 

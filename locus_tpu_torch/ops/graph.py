@@ -1,0 +1,476 @@
+"""Device-side control flow, and the step as one CUDA graph: the
+counterpart of `lax.cond` / `lax.while_loop` inside a jitted JAX program,
+and of the jit itself.
+
+`gate(pred, body, trips)` runs `body()` where the 0-d bool tensor `pred`
+holds. How depends on the mode the caller set:
+
+- eager (the default): one host read of `pred`, a Python `if`;
+- capture (while `CapturedStep` records its graph): an IF node on `pred`
+  (`csrc/graph.cu`). The body's kernels sit in the node's body graph and
+  run on a replay only where `pred` holds, with no host read;
+- masked (`masked()`): the body always runs, and every buffer it writes
+  takes `where(pred, new, old)`. It is how the CPU tests check a body
+  that capture would record, and how `CapturedStep` warms up.
+
+A gated body returns nothing: it writes its results in place, through
+`assign`, into buffers made before the gate. An out-of-place result of an
+IF body that did not run holds garbage. A body written this way gives the
+same bits in all three modes.
+
+`trips` is a 0-d integer (or bool) tensor that, once the step has run,
+holds how many of the gates that share it ran their body: the iteration
+count of a loop of gated trips, or the predicate of a single gate. The
+launch counters read it (`fold_launches`).
+
+The port imports no JAX: this module is the whole of what it needs.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import ctypes
+import functools
+import operator
+import time
+import weakref
+
+import torch
+from torch.overrides import TorchFunctionMode
+from torch.utils._python_dispatch import TorchDispatchMode
+
+# None: eager; a _Masked: masked; a _Capture: capture
+_mode = contextvars.ContextVar("locus_torch_graph_mode", default=None)
+
+
+class _Masked:
+    def __init__(self, preds: tuple):
+        self.preds = preds
+
+
+@contextlib.contextmanager
+def masked():
+    """Run the enclosed calls' gates in masked mode: every body runs, and
+    its writes keep the old values where the gate's predicate is false."""
+    token = _mode.set(_Masked(()))
+    try:
+        yield
+    finally:
+        _mode.reset(token)
+
+
+def capturing() -> bool:
+    """True while a `CapturedStep` records its graph."""
+    return isinstance(_mode.get(), _Capture)
+
+
+def gate(pred: torch.Tensor, body, trips: torch.Tensor) -> bool:
+    """Run `body()` where the 0-d bool `pred` holds (see the module
+    docstring). Returns False only where it knows that the body did not
+    run (eager mode, `pred` false): a loop of gated trips stops there."""
+    mode = _mode.get()
+    if mode is None:
+        if not bool(pred):
+            return False
+        body()
+        return True
+    if isinstance(mode, _Masked):
+        # the body may rewrite `pred` itself (a loop's flag): keep its value
+        token = _mode.set(_Masked(mode.preds + (pred.clone(),)))
+        try:
+            body()
+        finally:
+            _mode.reset(token)
+        return True
+    mode.gate(pred, body, trips)
+    return True
+
+
+def assign(buf: torch.Tensor, new: torch.Tensor) -> None:
+    """Write `new` into `buf` in place: how a gated body returns a result."""
+    mode = _mode.get()
+    if isinstance(mode, _Masked) and mode.preds:
+        new = torch.where(functools.reduce(operator.and_, mode.preds), new, buf)
+    buf.copy_(new)
+
+
+# Constants made from host data, once per (values, dtype, device): a step
+# under capture may build no tensor from host data (the upload would be
+# recorded with a host pointer), so the warm-up makes them.
+_constants: dict = {}
+
+
+def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A tensor of `values` (a number or nested tuple) on `device`, made
+    once and shared: never write into it."""
+    device = torch.device(device)
+    key = (values, dtype, device)
+    out = _constants.get(key)
+    if out is None:
+        if capturing():
+            raise RuntimeError(f"the constant {values!r} ({dtype}) was first needed under capture")
+        out = _constants[key] = torch.tensor(values, dtype=dtype, device=device)
+    return out
+
+
+# -- the guard: no host read, no tensor from host data ---------------------
+
+class HostReadError(RuntimeError):
+    """A step that must stay on the device read a tensor on the host, built
+    one from host data, or ran an op whose output shape depends on data."""
+
+
+_HOST_READS = {
+    torch.Tensor.item, torch.Tensor.__bool__, torch.Tensor.tolist, torch.Tensor.cpu,
+    torch.Tensor.numpy, torch.Tensor.__int__, torch.Tensor.__float__, torch.Tensor.__index__,
+}
+_FROM_HOST = {torch.tensor, torch.from_numpy}
+
+
+class _NoHostReadFunctions(TorchFunctionMode):
+    def __init__(self, what: str):
+        super().__init__()
+        self.what = what
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in _HOST_READS:
+            raise HostReadError(f"{self.what}: Tensor.{func.__name__} reads a tensor on the host")
+        if func in _FROM_HOST or (func is torch.as_tensor and not isinstance(args[0], torch.Tensor)):
+            raise HostReadError(f"{self.what}: torch.{func.__name__} builds a tensor from host data")
+        if func is torch.Tensor.__setitem__ and not isinstance(args[2], torch.Tensor):
+            # x[i] = 1.0 uploads the number as a tensor; x[i].fill_(1.0) does not
+            raise HostReadError(f"{self.what}: Tensor.__setitem__ of {args[2]!r} builds a tensor from host data")
+        if func in (torch.Tensor.__getitem__, torch.Tensor.__setitem__) and _host_index(args[1]):
+            raise HostReadError(f"{self.what}: an index of {args[1]!r} uploads a list as a tensor")
+        return func(*args, **kwargs)
+
+
+def _host_index(index) -> bool:
+    """Whether an index holds a list (or array) that indexing uploads."""
+    parts = index if isinstance(index, tuple) else (index,)
+    return any(isinstance(p, list) or hasattr(p, "__array__") and not isinstance(p, torch.Tensor) for p in parts)
+
+
+_aten = torch.ops.aten
+_DATA_SHAPED = {
+    _aten._local_scalar_dense.default, _aten.nonzero.default, _aten.masked_select.default,
+    _aten._unique2.default, _aten.unique_consecutive.default, _aten.unique_dim.default,
+    _aten.repeat_interleave.Tensor,
+}
+_INDEXING = {_aten.index.Tensor, _aten.index_put.default, _aten.index_put_.default, _aten._index_put_impl_.default}
+
+
+class _NoHostReadOps(TorchDispatchMode):
+    def __init__(self, what: str):
+        super().__init__()
+        self.what = what
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        bool_index = func in _INDEXING and any(
+            i is not None and i.dtype in (torch.bool, torch.uint8) for i in args[1]
+        )
+        if func in _DATA_SHAPED or bool_index:
+            raise HostReadError(f"{self.what}: {func} reads a tensor on the host or takes its shape from data")
+        return func(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def no_host_reads(what: str = "the step"):
+    """Raise `HostReadError` on any host read of a tensor (`item`, `bool`,
+    `int`, `float`, `tolist`, `cpu`, `numpy`), any tensor built from host
+    data (`torch.tensor`, `from_numpy`, `as_tensor` of a non-tensor, an
+    item assignment of a number, an index that is a list) and
+    any op whose output shape depends on data (`nonzero`, a boolean index,
+    ...), naming it. The CPU tests run the step under it. Under capture
+    CUDA and PyTorch refuse each of these themselves (the traceback of the
+    capture's error names the op), so `CapturedStep` records without it
+    (on the H100 it made recording the production step take 1.45 s, not
+    0.40 s)."""
+    with _NoHostReadFunctions(what), _NoHostReadOps(what):
+        yield
+
+
+# -- capture ----------------------------------------------------------------
+
+def _leaves(tree) -> list:
+    """The leaves (tensors or None) of nested (Named)tuples, in order."""
+    if isinstance(tree, tuple):
+        return [leaf for part in tree for leaf in _leaves(part)]
+    return [tree]
+
+
+def _rebuild(tree, leaves):
+    """`tree`'s structure with the leaves of the iterator `leaves`."""
+    if isinstance(tree, tuple):
+        parts = [_rebuild(part, leaves) for part in tree]
+        return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+    return next(leaves)
+
+
+def _map(fn, tree):
+    """`tree` with `fn` applied to each leaf."""
+    return _rebuild(tree, iter([fn(x) for x in _leaves(tree)]))
+
+
+def _spec(leaves) -> tuple:
+    return tuple(None if x is None else (tuple(x.shape), x.dtype) for x in leaves)
+
+
+def _fresh(x):
+    """A copy of `x` in memory of its own (None stays None)."""
+    return None if x is None else x.clone(memory_format=torch.contiguous_format)
+
+
+_graph_lib = None
+_MAX_REGIONS = 64
+# CUDA graphs captured in this process (a tool reports whether its step ran captured)
+captures = 0
+
+
+def _lib():
+    """csrc/graph.cu, with its entry points typed."""
+    global _graph_lib
+    if _graph_lib is None:
+        from locus_tpu_torch.ops.kernels import build
+
+        lib = build.library("graph")
+        lib.locus_if_begin.argtypes = [ctypes.c_void_p] * 3
+        lib.locus_if_begin.restype = ctypes.c_int
+        lib.locus_if_end.argtypes = [ctypes.c_void_p]
+        lib.locus_if_end.restype = ctypes.c_int
+        _graph_lib = lib
+    return _graph_lib
+
+
+class _Capture:
+    """The bookkeeping of one capture: the body stream and its memory pool,
+    and which kernel launches fell in which gated region."""
+
+    def __init__(self, device: torch.device):
+        self.body = torch.cuda.Stream(device)
+        # The body's allocations: a pool of their own, since the graph's
+        # pool takes only the capturing stream's
+        self.pool = torch.cuda.MemPool()
+        self.regions: dict[int, tuple[torch.Tensor, dict]] = {}
+        self.gated: dict = {}     # the launches inside every gate, summed
+        self.inside = False
+
+    def gate(self, pred: torch.Tensor, body, trips: torch.Tensor) -> None:
+        from locus_tpu_torch.ops import kernels
+
+        if self.inside:
+            raise NotImplementedError("a gate inside a gated body is not captured")
+        if pred.dtype != torch.bool or pred.numel() != 1 or not pred.is_cuda:
+            raise ValueError(f"a gate's predicate is a 0-d bool CUDA tensor, got {pred.dtype} {tuple(pred.shape)}")
+        lib = _lib()
+        before = kernels.raw_launches()
+        main = torch.cuda.current_stream(pred.device)
+        _check_status(lib.locus_if_begin(main.cuda_stream, pred.data_ptr(), self.body.cuda_stream), "locus_if_begin")
+        self.inside = True
+        try:
+            with torch.cuda.stream(self.body), torch.cuda.use_mem_pool(self.pool):
+                body()
+        finally:
+            self.inside = False
+            status = lib.locus_if_end(self.body.cuda_stream)
+        _check_status(status, "locus_if_end")
+        per_trip = _minus(kernels.raw_launches(), before)
+        for k, v in per_trip.items():
+            self.gated[k] = self.gated.get(k, 0) + v
+        key = id(trips)
+        if key in self.regions and self.regions[key][1] != per_trip:
+            raise RuntimeError(f"the gates of one region launched {self.regions[key][1]} and {per_trip}")
+        self.regions.setdefault(key, (trips, per_trip))
+
+
+def _check_status(status: int, what: str) -> None:
+    from locus_tpu_torch.ops.kernels import build
+
+    if status == -1:
+        raise RuntimeError(f"{what}: the stream is not capturing")
+    build.check(status, what)
+
+
+def _minus(a: dict, b: dict) -> dict:
+    return {k: a[k] - b.get(k, 0) for k in a if a[k] != b.get(k, 0)}
+
+
+class _Account:
+    """The launches of one captured step's replays: `ungated` once a
+    replay, each of `regions` (launches a trip) times the trips that the
+    graph adds up in `trips` (int64, on the device) at every replay."""
+
+    def __init__(self, step, ungated: dict, regions: list, trips: torch.Tensor):
+        self.step = weakref.ref(step)
+        self.ungated, self.regions, self.trips = ungated, regions, trips
+        self.replays = 0
+
+    def take(self, rows: dict) -> None:
+        """Add the replays' launches to `rows` and start again at zero."""
+        if not self.replays:
+            return
+        trips = self.trips[: len(self.regions)].tolist()
+        for k, v in self.ungated.items():
+            rows[k] = rows.get(k, 0) + v * self.replays
+        for per_trip, n in zip(self.regions, trips):
+            for k, v in per_trip.items():
+                rows[k] = rows.get(k, 0) + v * n
+        self.drop()
+
+    def drop(self) -> None:
+        if self.replays:
+            self.trips.zero_()
+            self.replays = 0
+
+
+# the accounts of the captured steps, kept past their step until the
+# launches of its last replays are read
+_accounts: list = []
+
+
+class CapturedStep:
+    """`fn(state, *inputs) -> (state, outputs)` recorded once as one CUDA
+    graph and replayed for every later call: the counterpart of the JAX jit
+    with the state donated. `fn`'s gates become IF nodes.
+
+    The first call warms up on the capture stream, in masked mode, on a
+    clone of the state (so the first scan is not stepped twice; the
+    warm-up builds and loads the kernels, allocates their counters, makes
+    the constants and lets the allocator settle), then captures, then
+    replays for its inputs. A later call copies its inputs into the
+    graph's static inputs, copies every state leaf that is not the graph's
+    own into it (device to device: a fresh state, a copied one, or one
+    with some leaves replaced), and replays.
+
+    The returned state and outputs ARE the graph's static buffers: the
+    next call overwrites them (JAX's donation). Clone what you keep.
+
+    A failed capture raises, naming the op; nothing falls back to the
+    eager step. Kernel launches inside the graph are counted at capture
+    (the warm-up's and the capture's own do not count): every replay adds
+    the launches outside any gate once, and each gated region's launches
+    times the trips it ran, held on the device until `fold_launches`."""
+
+    def __init__(self, fn, name: str):
+        self.fn = fn
+        self.name = name
+        self.graph = None
+        self.setup_seconds = {}   # the first call's warm-up, recording and instantiation
+
+    def __call__(self, state, *inputs):
+        if self.graph is None:
+            self._capture(state, inputs)
+        else:
+            self._load(self._state_leaves, _leaves(state))
+            self._load(self._input_leaves, _leaves(inputs))
+        self.graph.replay()
+        self.account.replays += 1
+        return self.state, self.out
+
+    def _load(self, static: list, given: list) -> None:
+        if len(given) != len(static):
+            raise ValueError(f"{self.name}: {len(given)} leaves given, the graph holds {len(static)}")
+        for a, b in zip(static, given):
+            if b is a:
+                continue
+            if b is None or a is None or b.shape != a.shape or b.dtype != a.dtype:
+                raise ValueError(f"{self.name}: a leaf {_spec([b])} where the graph holds {_spec([a])}")
+            a.copy_(b)
+
+    def _capture(self, state, inputs) -> None:
+        from locus_tpu_torch.ops import kernels
+
+        dev = next(x for x in _leaves(state) if x is not None).device
+        _lib()
+        counts = kernels.save_launches()
+        self.state, self.inputs = _map(_fresh, state), _map(_fresh, inputs)
+        self._state_leaves, self._input_leaves = _leaves(self.state), _leaves(self.inputs)
+        t0 = time.perf_counter()
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream), masked():
+            self.fn(_map(_fresh, self.state), *self.inputs)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+
+        acc = torch.zeros(_MAX_REGIONS, dtype=torch.int64, device=dev)
+        cap = _Capture(dev)
+        graph = torch.cuda.CUDAGraph()
+        before = kernels.raw_launches()
+        token = _mode.set(cap)
+        # capture_begin/end directly: torch.cuda.graph's context would also
+        # empty the allocator's cache (and collect garbage) at every capture
+        try:
+            with torch.cuda.stream(stream):
+                graph.capture_begin()
+                try:
+                    new_state, out = self.fn(self.state, *self.inputs)
+                    self.out = self._close(new_state, out)
+                    trips = [t for t, _ in cap.regions.values()]
+                    if len(trips) > _MAX_REGIONS:
+                        raise RuntimeError(f"{len(trips)} gated regions, at most {_MAX_REGIONS}")
+                    if trips:
+                        acc[: len(trips)].add_(torch.stack([t.to(torch.int64) for t in trips]))
+                except BaseException:
+                    with contextlib.suppress(Exception):     # the error in flight names the op
+                        graph.capture_end()
+                    raise
+                t2 = time.perf_counter()
+                graph.capture_end()
+        except Exception as e:
+            raise RuntimeError(f"{self.name}: the CUDA graph capture failed: {e}") from e
+        finally:
+            _mode.reset(token)
+        self.setup_seconds = {"warm_up": t1 - t0, "record": t2 - t1, "instantiate": time.perf_counter() - t2}
+        captured = _minus(kernels.raw_launches(), before)
+        kernels.restore_launches(counts)
+        regions = [per_trip for _, per_trip in cap.regions.values()]
+        ungated = {k: v - cap.gated.get(k, 0) for k, v in captured.items() if v != cap.gated.get(k, 0)}
+        self.account = _Account(self, ungated, regions, acc)
+        _accounts.append(self.account)
+        # the trips tensors and the body pool live as long as the graph
+        self._keep = (cap, [t for t, _ in cap.regions.values()])
+        self.graph = graph
+        global captures
+        captures += 1
+
+    def _close(self, new_state, out):
+        """Inside the capture: the step's new state written into the static
+        state, and the outputs made distinct from every static buffer (an
+        output that is a state leaf would change with the write-back)."""
+        static = {x.untyped_storage().data_ptr() for x in self._state_leaves + self._input_leaves if x is not None}
+
+        def own(x):
+            return x.clone() if x is not None and x.untyped_storage().data_ptr() in static else x
+
+        new = _leaves(new_state)
+        if _spec(new) != _spec(self._state_leaves):
+            raise ValueError(f"{self.name}: the step changes the state's structure or shapes")
+        # every output and every source is made distinct before the first write
+        out = _map(own, out)
+        writes = [(a, own(b)) for a, b in zip(self._state_leaves, new) if b is not a]
+        for a, b in writes:
+            a.copy_(b)
+        return out
+
+
+def fold_launches() -> dict:
+    """The kernel launches of every captured step's replays since the last
+    fold, by `read_launches`' row names (one host read per step that
+    replayed); each account starts again at zero, and those of steps that
+    are gone are dropped."""
+    rows: dict = {}
+    for account in _accounts:
+        account.take(rows)
+    _accounts[:] = [a for a in _accounts if a.step() is not None]
+    return rows
+
+
+def drop_launches() -> None:
+    """Forget the launches of every captured step's replays so far."""
+    for account in _accounts:
+        account.drop()
+    _accounts[:] = [a for a in _accounts if a.step() is not None]

@@ -19,7 +19,7 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("nn", "moments")  # the sources of the pipeline's kernels
+KERNELS = ("nn", "moments", "graph")  # the sources the pipeline runs (graph: the IF nodes of a captured step)
 FLOOR = "floor"              # the empty kernel that measurements time beside them
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -225,7 +225,7 @@ def pack_operands(query: torch.Tensor, target: torch.Tensor, bt: int = MBT):
     t = torch.zeros(target.shape[:-2] + (-(-m // bt) * bt, 4), dtype=torch.float32, device=target.device)
     t[..., :m, :3] = target
     t[..., :m, 3] = sq_norm3(target)
-    t[..., m:, 3] = PAD_T2
+    t[..., m:, 3].fill_(PAD_T2)
     return q, t
 
 

@@ -39,7 +39,7 @@ import ctypes
 import torch
 
 from locus_tpu_torch.core.cloud import take_rows
-from locus_tpu_torch.ops import dispatch
+from locus_tpu_torch.ops import dispatch, graph
 from locus_tpu_torch.utils.linalg import sum_last
 
 BT = 2048      # map target chunk (the map caches are sized by it)
@@ -88,7 +88,7 @@ def build_nn_target(target: torch.Tensor, m_pad: int | None = None, bt: int = BT
     t = torch.zeros(target.shape[:-2] + (m_pad, 4), dtype=torch.float32, device=target.device)
     t[..., :m, :3] = -2.0 * target
     t[..., :m, 3] = sq_norm3(target)
-    t[..., m:, 3] = float("inf")
+    t[..., m:, 3].fill_(float("inf"))
     return t
 
 
@@ -156,7 +156,7 @@ def visit_lists(t_min, t_max, c_min, c_max, r2):
                       t_min[..., :, None, :] - c_max[..., None, :, :]),
         min=0.0,
     )
-    r2 = torch.as_tensor(r2, dtype=torch.float32, device=gap.device)
+    r2 = r2.to(torch.float32) if torch.is_tensor(r2) else graph.constant(float(r2), torch.float32, gap.device)
     r2 = r2.reshape(r2.shape + (1, 1)) if t_min.dim() == 3 else r2.reshape(())   # (1,) single
     visit = sq_norm3(gap) <= r2                                      # (..., G, C)
     num_chunks = visit.shape[-1]
@@ -361,7 +361,7 @@ def pack_query(query: torch.Tensor, bq: int = BQ) -> torch.Tensor:
     n = query.shape[-2]
     q = torch.zeros(query.shape[:-2] + (-(-n // bq) * bq, 4), dtype=torch.float32, device=query.device)
     q[..., :n, :3] = query
-    q[..., :n, 3] = 1.0
+    q[..., :n, 3].fill_(1.0)
     return q
 
 

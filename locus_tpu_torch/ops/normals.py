@@ -16,7 +16,7 @@ import torch
 
 from locus_tpu_torch.core.cloud import PointCloud
 from locus_tpu_torch.geometry import se3
-from locus_tpu_torch.ops import neighbors
+from locus_tpu_torch.ops import graph, neighbors
 from locus_tpu_torch.utils.linalg import sum_last, tree_sum
 
 _EPS = 1e-12
@@ -96,8 +96,8 @@ def eigh_sym3x3(A: torch.Tensor):
         A[..., 1, 1], A[..., 1, 2], A[..., 2, 2],
     )
     eye = torch.eye(3, dtype=A.dtype, device=A.device).expand(A.shape)
-    e_x = torch.tensor([1.0, 0.0, 0.0], dtype=A.dtype, device=A.device)
-    e_y = torch.tensor([0.0, 1.0, 0.0], dtype=A.dtype, device=A.device)
+    e_x = graph.constant((1.0, 0.0, 0.0), A.dtype, A.device)
+    e_y = graph.constant((0.0, 1.0, 0.0), A.dtype, A.device)
 
     def vec_for(l_other1, l_other2):
         M = se3.matmul(A - l_other1[..., None, None] * eye, A - l_other2[..., None, None] * eye)
@@ -142,7 +142,7 @@ def estimate_normals_radius(
     # multiply-adds, which keeps it nearer the float64 answer than plain
     # f32 arithmetic; float64 here tracks it best on the golden replay.
     _, vx, vy, vz = (c.float() for c in smallest_eigenvector_sym3x3_comps(*(c.double() for c in cov_c)))
-    vp = torch.as_tensor(viewpoint, dtype=torch.float32, device=cloud.xyz.device)
+    vp = graph.constant(tuple(viewpoint), torch.float32, cloud.xyz.device)
     dot = (
         vx * (vp[0] - cloud.xyz[..., 0])
         + vy * (vp[1] - cloud.xyz[..., 1])
@@ -170,9 +170,10 @@ def knn_covariance(xyz: torch.Tensor, mask: torch.Tensor, k: int) -> torch.Tenso
     mean = tree_sum(nbr_safe * w[..., None], dim=-2) / denom[..., None]
     c = torch.where(nbr_mask[..., None], nbr - mean[..., None, :], 0.0)
     # the six products xx, xy, xz, yy, yz, zz of each neighbour, summed at once
-    prods = c[..., [0, 0, 0, 1, 1, 2]] * c[..., [0, 1, 2, 1, 2, 2]]
+    rows, cols, sym = ((0, 0, 0, 1, 1, 2), (0, 1, 2, 1, 2, 2), (0, 1, 2, 1, 3, 4, 2, 4, 5))
+    prods = c[..., graph.constant(rows, torch.int64, c.device)] * c[..., graph.constant(cols, torch.int64, c.device)]
     cov6 = tree_sum(prods, dim=-2) / denom[..., None]
-    return cov6[..., [0, 1, 2, 1, 3, 4, 2, 4, 5]].unflatten(-1, (3, 3))
+    return cov6[..., graph.constant(sym, torch.int64, c.device)].unflatten(-1, (3, 3))
 
 
 def estimate_normals(cloud: PointCloud, k: int = 20, viewpoint=(0.0, 0.0, 0.0)) -> PointCloud:
@@ -183,7 +184,7 @@ def estimate_normals(cloud: PointCloud, k: int = 20, viewpoint=(0.0, 0.0, 0.0)) 
     cov = knn_covariance(cloud.xyz, cloud.mask, k)
     _, normal = smallest_eigenvector_sym3x3(cov.double())
     normal = normal.float()
-    vp = torch.as_tensor(viewpoint, dtype=torch.float32, device=cloud.xyz.device)
+    vp = graph.constant(tuple(viewpoint), torch.float32, cloud.xyz.device)
     flip = sum_last(normal * (vp - cloud.xyz)) < 0.0
     normal = torch.where(flip[..., None], -normal, normal)
     normal = torch.where(cloud.mask[..., None], normal, 0.0)

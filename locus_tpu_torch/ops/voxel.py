@@ -14,6 +14,7 @@ import os
 import torch
 
 from locus_tpu_torch.core.cloud import PAD_COORD, PointCloud, take_rows
+from locus_tpu_torch.ops import graph
 
 # Voxel coordinates are offset into [0, 2^20) per axis.
 _COORD_OFFSET = 1 << 19
@@ -73,7 +74,8 @@ def voxel_downsample(
     cap = capacity if capacity is not None else n
     dev = cloud.xyz.device
     lead = cloud.mask.shape[:-1]
-    if not with_attributes and os.environ.get("LOCUS_DEBUG_CHECKS"):
+    # a host read: run eagerly and in a captured step's warm-up, never under capture
+    if not with_attributes and os.environ.get("LOCUS_DEBUG_CHECKS") and not graph.capturing():
         m = cloud.mask
         if bool(torch.any(cloud.normals[m] != 0)) or bool(torch.any(cloud.intensity[m] != 0)):
             raise ValueError(

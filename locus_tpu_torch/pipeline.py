@@ -32,9 +32,16 @@ device: every op and kernel launch serves all of them (the radius
 normals run kernel B4, the 1-NN passes kernel B3). The host loops of the
 registrations run while any robot iterates; the random filter draws one
 CPU generator per robot, seeded from that robot's scan count.
+
+Compiled: `make_step` (and `runner.make_replay_step`) is the counterpart
+of the JAX `make_step`, a jit of `step` with the state donated: on the
+card, one CUDA graph a scan (`ops.graph.CapturedStep`), with the GICP
+trips and re-lookups as IF nodes on device flags, for every
+configuration where `capturable` holds; on the CPU, `step` itself.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -45,7 +52,7 @@ from locus_tpu_torch.config import LocusConfig
 from locus_tpu_torch.core.cloud import PointCloud, concatenate
 from locus_tpu_torch.geometry import se3
 from locus_tpu_torch.mapping.registry import mapper_fabric
-from locus_tpu_torch.ops import features as feat, filters, normals as normals_op, voxel
+from locus_tpu_torch.ops import features as feat, filters, graph, normals as normals_op, voxel
 from locus_tpu_torch.ops.dispatch import resolve_device
 
 
@@ -249,7 +256,7 @@ def preprocess(raw: PointCloud, leaf, cfg: LocusConfig, generator: Optional[torc
             fg, edge_capacity=cfg.scan_capacity // 4, planar_capacity=feat.RINGS * f.feature_width
         )
         planar = voxel.voxel_downsample(
-            planar, torch.tensor(f.grid_res, dtype=torch.float32, device=pc.xyz.device),
+            planar, graph.constant(f.grid_res, torch.float32, pc.xyz.device),
             capacity=cfg.scan_capacity - cfg.scan_capacity // 4,
         )
         pc = concatenate([edge, planar], capacity=cfg.scan_capacity)
@@ -259,7 +266,7 @@ def preprocess(raw: PointCloud, leaf, cfg: LocusConfig, generator: Optional[torc
     if f.grid_filter:
         # PointCloudFilter's own fixed-leaf grid (PointCloudFilter.cc:119-130)
         pc = voxel.voxel_downsample(
-            pc, torch.tensor(f.grid_res, dtype=torch.float32, device=pc.xyz.device),
+            pc, graph.constant(f.grid_res, torch.float32, pc.xyz.device),
             capacity=cfg.scan_capacity, with_attributes=False,
         )
     if f.random_filter and generator is not None:
@@ -497,3 +504,89 @@ def step(
         xy_cross_section=xy_cross_section,
     )
     return new_state, out
+
+
+def capture_blocker(cfg: LocusConfig, mesh=None) -> Optional[str]:
+    """The first option that keeps `cfg` (on `mesh`) from running as one
+    captured CUDA graph a scan, or None. Later slices of the port lift
+    them one by one."""
+    for name, reg in (("odometry", cfg.odometry), ("localization.registration", cfg.localization.registration)):
+        if reg.registration_method != "gicp":
+            return (f"{name}.registration_method={reg.registration_method!r} "
+                    "(the NDT line search reads its test on the host)")
+    if cfg.mapper.structure != "ring":
+        return f"mapper.structure={cfg.mapper.structure!r}"
+    if cfg.filtering.extract_features:
+        return "filtering.extract_features=True (the LOAM features)"
+    if cfg.filtering.random_filter:
+        return "filtering.random_filter=True (its draw comes from a CPU generator a scan)"
+    if cfg.mapper.keyframe_at_map_resolution:
+        return "mapper.keyframe_at_map_resolution=True"
+    if mesh is not None:
+        return "mesh= (gloo stages the map merges through the host)"
+    return None
+
+
+def capturable(cfg: LocusConfig, mesh=None) -> bool:
+    """Whether `make_step` / `runner.make_replay_step` run `cfg` as one
+    CUDA graph a scan on the card: GICP in both stages (any covariance
+    mode, iteration counts and re-lookup), the ring map, radius or kNN
+    normals without the LOAM features, no random filter, keyframes at the
+    scan's own resolution, any fusion mode, one robot and no mesh."""
+    return capture_blocker(cfg, mesh) is None
+
+
+def check_capturable(cfg: LocusConfig, mesh=None) -> None:
+    """Raise NotImplementedError, naming the option, unless `capturable`."""
+    blocker = capture_blocker(cfg, mesh)
+    if blocker is not None:
+        raise NotImplementedError(f"the captured step does not cover {blocker}; run the eager step")
+
+
+def check_single(state: LocusState) -> None:
+    """Raise NotImplementedError for a batched state: the captured step
+    advances one robot."""
+    if state.voxel_leaf.dim() != 0:
+        raise NotImplementedError("the captured step advances one robot, not a batched state")
+
+
+class CompiledStep:
+    """`make_step`'s step on the card: `step` as one CUDA graph
+    (`ops.graph.CapturedStep`), its static inputs the raw scan's four
+    tensors, the stamp and the sequence number."""
+
+    def __init__(self, cfg: LocusConfig, device: torch.device):
+        self.device = device
+        self.graph = graph.CapturedStep(
+            lambda state, raw, stamp, seq: step(state, raw, stamp, cfg, seq=seq), "pipeline.step"
+        )
+
+    def __call__(self, state: LocusState, raw_scan: PointCloud, stamp, seq=None):
+        check_single(state)
+        stamp = torch.as_tensor(stamp, dtype=torch.float32).to(self.device)
+        seq = None if seq is None else torch.as_tensor(seq, dtype=torch.int32).to(self.device)
+        return self.graph(state, raw_scan, stamp, seq)
+
+
+def make_step(cfg: LocusConfig, device=None):
+    """The compiled step (counterpart of the JAX `make_step`, a jit of
+    `step` with the state donated): step(state, raw_scan, stamp, seq=None)
+    -> (state, StepOutput).
+
+    On the card (`device` None or CUDA) it is one CUDA graph a scan, the
+    GICP loops and the re-lookup gated on the device (`ops.graph`), for
+    the configurations where `capturable(cfg)` holds; for any other it
+    raises NotImplementedError naming the option, before any device call.
+    On the CPU it is the eager `step`, as the JAX jit runs the same program
+    there.
+
+    Donation: on the card the returned state and outputs are the graph's
+    static buffers, overwritten by the next call; clone what you keep. A
+    state that is not the one the last call returned (a fresh
+    `init_state`, a copy, one with leaves replaced) is copied into them
+    first, device to device."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return functools.partial(step, cfg=cfg)
+    check_capturable(cfg)
+    return CompiledStep(cfg, dev)

@@ -11,9 +11,13 @@ B2 at SCAN_BT), then `inner_iterations` Gauss-Newton steps on the SE(3)
 tangent with M and the pairs fixed.
 
 Loop control: the JAX package runs the outer loop as a `lax.while_loop`
-on a device-side test and the final re-lookup under `lax.cond`. Here both
-tests are read on the host (one read per outer iteration), so the
-iteration count equals JAX's and no NN pass is launched for nothing.
+on a device-side test and the final re-lookup under `lax.cond`. Here each
+of the cfg.iterations possible trips and the re-lookup is an
+`ops.graph.gate` on a device flag: eager, one host read a trip (the loop
+ends at the first false one); inside a captured step, an IF node, so the
+trips after convergence launch nothing. Either way the iteration count
+equals JAX's and no NN pass is launched for nothing. A trip writes its
+results in place into the loop state made before the loop.
 
 Batching: source, target and guess may carry one leading batch dimension
 (the batched replay), with the meaning vmap gives the JAX function.
@@ -39,6 +43,7 @@ import torch
 from locus_tpu_torch.config import RegistrationConfig
 from locus_tpu_torch.core.cloud import PointCloud, take_rows
 from locus_tpu_torch.geometry import se3
+from locus_tpu_torch.ops import graph
 from locus_tpu_torch.ops.normals import eigh_sym3x3, knn_covariance, smallest_eigenvector_sym3x3
 from locus_tpu_torch.ops.kernels.nn import (
     SCAN_BT,
@@ -185,9 +190,9 @@ def _gauss_newton_step_comps(p_cur, q, M, w, lm_lambda):
          mr0, mr1, mr2, gw0, gw1, gw2],
         dim=-1,
     ))
-    H_tt = s[..., [0, 1, 2, 1, 3, 4, 2, 4, 5]].unflatten(-1, (3, 3))
+    H_tt = s[..., graph.constant((0, 1, 2, 1, 3, 4, 2, 4, 5), torch.int64, s.device)].unflatten(-1, (3, 3))
     H_tw = -s[..., 6:15].unflatten(-1, (3, 3))
-    H_ww = s[..., [15, 16, 17, 16, 18, 19, 17, 19, 20]].unflatten(-1, (3, 3))
+    H_ww = s[..., graph.constant((15, 16, 17, 16, 18, 19, 17, 19, 20), torch.int64, s.device)].unflatten(-1, (3, 3))
     g = s[..., 21:27]
     H = torch.cat(
         [torch.cat([H_tt, H_tw], dim=-1), torch.cat([H_tw.transpose(-1, -2), H_ww], dim=-1)], dim=-2
@@ -204,7 +209,7 @@ def _scaled_delta(T_prev: torch.Tensor, T_new: torch.Tensor, cfg: RegistrationCo
     elsewhere; converged when the max < 1."""
     diff = torch.abs(T_prev - T_new)
     scale = torch.full((4, 4), 1.0 / cfg.tf_epsilon, dtype=diff.dtype, device=diff.device)
-    scale[:3, :3] = 1.0 / cfg.rotation_epsilon
+    scale[:3, :3].fill_(1.0 / cfg.rotation_epsilon)
     return torch.amax(diff * scale, dim=(-2, -1))
 
 
@@ -263,18 +268,20 @@ def gicp_register(
         )
         return torch.where(torch.isfinite(d2), d2, 1e12), j
 
+    # The loop state: buffers made once, written in place by every trip
+    # (`graph.assign`), so that a trip can be a gated body.
     n_src = source.capacity
-    T = se3.identity(dev).expand(lead + (4, 4))
+    T = se3.identity(dev).expand(lead + (4, 4)).clone()
     it = torch.zeros(lead, dtype=torch.int32, device=dev)
     delta = torch.full(lead, float("inf"), device=dev)
     fitness = torch.full(lead, float("inf"), device=dev)
     ncorr = torch.zeros(lead, dtype=torch.int32, device=dev)
     j_fin = torch.zeros(lead + (n_src,), dtype=torch.int64, device=dev)
     d2_fin = torch.full(lead + (n_src,), float("inf"), device=dev)
-    while True:
+    go = torch.full((), cfg.iterations > 0, dtype=torch.bool, device=dev)   # a member still iterates
+
+    def trip():
         active = (it < cfg.iterations) & (delta >= 1.0)
-        if not bool(active.any()):
-            break
         p = se3.transform_points(T, src0)
         d2, j = nearest_fn(p)
         w = (source.mask & take_rows(target.mask, j) & (d2 <= corr_dist2)).to(torch.float32)
@@ -299,24 +306,41 @@ def gicp_register(
             T_new = se3.compose(se3.se3_exp(dx), T_new)
         T_new = se3.make_transform(se3.orthonormalize(se3.rotation(T_new)), se3.translation(T_new))
         wsum = tree_sum(w, dim=-1)
-        delta = select(active, _scaled_delta(T, T_new, cfg), delta)
-        fitness = select(active, tree_sum(d2 * w, dim=-1) / torch.clamp(wsum, min=1.0), fitness)
-        ncorr = select(active, wsum.to(torch.int32), ncorr)
-        j_fin = select(active, j, j_fin)
-        d2_fin = select(active, d2, d2_fin)
-        T = select(active, T_new, T)
-        it = it + active.to(torch.int32)
+        new_delta = select(active, _scaled_delta(T, T_new, cfg), delta)
+        new_it = it + active.to(torch.int32)
+        graph.assign(fitness, select(active, tree_sum(d2 * w, dim=-1) / torch.clamp(wsum, min=1.0), fitness))
+        graph.assign(ncorr, select(active, wsum.to(torch.int32), ncorr))
+        graph.assign(j_fin, select(active, j, j_fin))
+        graph.assign(d2_fin, select(active, d2, d2_fin))
+        graph.assign(T, select(active, T_new, T))
+        graph.assign(delta, new_delta)
+        graph.assign(it, new_it)
+        graph.assign(go, torch.any((new_it < cfg.iterations) & (new_delta >= 1.0)))
+
+    # JAX's lax.while_loop: at most cfg.iterations trips, each gated on the
+    # flag the previous one left (eager: one host read a trip, and the loop
+    # ends at the first false; captured: trips after convergence launch
+    # nothing). `it` counts the trips that ran.
+    for _ in range(cfg.iterations):
+        if not graph.gate(go, trip, trips=it):
+            break
 
     converged = delta < 1.0
     # Exited on the iteration cap: the carried pairs may be stale, so
-    # re-search at the final pose (PointCloudLocalization.cc:327-336).
-    relook = ~converged
-    if cfg.final_correspondence_relookup and bool(relook.any()):
-        p_fin = se3.transform_points(T, src0)
-        p_fin = torch.where(source.mask[..., None], p_fin, src0)
-        d2_r, j_r = nearest_fn(p_fin)
-        d2_fin = select(relook, d2_r, d2_fin)
-        j_fin = select(relook, j_r, j_fin)
+    # re-search at the final pose (PointCloudLocalization.cc:327-336);
+    # JAX's lax.cond.
+    if cfg.final_correspondence_relookup:
+        relook = ~converged
+
+        def relookup():
+            p_fin = se3.transform_points(T, src0)
+            p_fin = torch.where(source.mask[..., None], p_fin, src0)
+            d2_r, j_r = nearest_fn(p_fin)
+            graph.assign(d2_fin, select(relook, d2_r, d2_fin))
+            graph.assign(j_fin, select(relook, j_r, j_fin))
+
+        any_relook = torch.any(relook)
+        graph.gate(any_relook, relookup, trips=any_relook)
     corr_mask = source.mask & take_rows(target.mask, j_fin) & (d2_fin <= corr_dist2)
     return GICPResult(
         transform=se3.compose(T, guess),

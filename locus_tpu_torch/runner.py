@@ -3,13 +3,17 @@ scan it packs the raw scan to a fixed shape, pushes the sensor windows
 into the device-resident fusion buffers and runs one pipeline step, then
 collects the trajectory and diagnostics on the host.
 
-Ported: `pack_scan`, the replay step, `run_sequence` (with the online
-SLAM backend), the live step of one upload and one fetch a scan
-(`make_live_step`, `unpack_live_output`), and the prepacked replays:
-`pack_sequence`, `stack_packed`, `make_scan_replay` (one sequence) and
-`make_batched_replay` (B sequences, one batched step per tick). The JAX
-package runs those as one compiled `lax.scan`; here a host loop steps
-through the prepacked device tensors.
+Ported: `pack_scan`, the replay step (`replay_step` eagerly,
+`make_replay_step` compiled: one CUDA graph a scan on the card),
+`run_sequence` (with the online SLAM backend), the live step of one
+upload and one fetch a scan (`make_live_step`, `unpack_live_output`),
+and the prepacked replays: `pack_sequence`, `stack_packed`,
+`make_scan_replay` (one sequence) and `make_batched_replay` (B sequences,
+one batched step per tick). The JAX package runs those as one compiled
+`lax.scan`; here a host loop steps through the prepacked device tensors,
+replaying the captured step where `pipeline.capturable` holds (the
+single replays; the batched replay, the live step and the mesh run the
+eager step).
 
 `mesh=` (a `parallel.mesh.Mesh`) runs the replays and the live step as
 one rank of an SPMD process group: the state's map leaves are this rank's
@@ -25,8 +29,9 @@ that thread's uploads would reach the card while the step runs on it.
 """
 from __future__ import annotations
 
-import time
 import contextlib
+import functools
+import time
 from typing import Optional
 
 import numpy as np
@@ -39,6 +44,7 @@ from locus_tpu_torch.io.dataset import Sequence, sensor_windows_for_scan
 from locus_tpu_torch.mapping.registry import mapper_fabric
 from locus_tpu_torch.metrics import RateReport
 from locus_tpu_torch.ops.dispatch import no_kernels, resolve_device, shard_context
+from locus_tpu_torch.ops.graph import CapturedStep
 from locus_tpu_torch.parallel.mesh import check_mesh
 
 
@@ -73,11 +79,56 @@ def raw_cloud(scan_xyz: torch.Tensor, scan_mask: torch.Tensor) -> PointCloud:
 
 
 def replay_step(state, scan_xyz, scan_mask, stamp, imu_s, imu_q, odom_s, odom_p, seq_id, cfg: LocusConfig):
-    """Sensor ingest + one pipeline step (counterpart of the function
-    `locus_tpu/runner.py::make_replay_step` compiles)."""
+    """Sensor ingest + one pipeline step, eagerly (the function
+    `locus_tpu/runner.py::make_replay_step` compiles; `make_replay_step`
+    is its compiled counterpart)."""
     fuse = fusion.push_imu_batch(state.fuse, imu_s, imu_q)
     fuse = fusion.push_odom_batch(fuse, odom_s, odom_p)
     return pipeline.step(state._replace(fuse=fuse), raw_cloud(scan_xyz, scan_mask), stamp, cfg, seq=seq_id)
+
+
+def make_replay_step(cfg: LocusConfig, device=None):
+    """Sensor ingest + one pipeline step as one compiled function
+    (counterpart of the JAX `make_replay_step`): rstep(state, scan_xyz,
+    scan_mask, stamp, imu_s, imu_q, odom_s, odom_p, seq_id) -> (state,
+    StepOutput), the arguments those of `replay_step` as device tensors
+    (`scan_inputs`).
+
+    On the card (`device` None or CUDA): the push of the IMU and odometry
+    windows and the step, one CUDA graph a scan (`ops.graph.CapturedStep`;
+    the scan, its mask, the stamp, the windows and the sequence number
+    are its static inputs), where `pipeline.capturable(cfg)` holds, and
+    NotImplementedError naming the option elsewhere. The returned state
+    and outputs are the graph's static buffers, overwritten by the next
+    call (JAX's donation): clone what you keep. On the CPU: `replay_step`,
+    eagerly."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return functools.partial(replay_step, cfg=cfg)
+    pipeline.check_capturable(cfg)
+    captured = CapturedStep(functools.partial(replay_step, cfg=cfg), "runner.replay_step")
+
+    def rstep(state, *inputs):
+        pipeline.check_single(state)
+        return captured(state, *inputs)
+
+    rstep.graph = captured
+    return rstep
+
+
+def _stepper(cfg: LocusConfig, dev: torch.device, mesh=None):
+    """(step function, captured): `make_replay_step`'s compiled step on the
+    card where `pipeline.capturable(cfg, mesh)` holds, else the eager
+    `replay_step`."""
+    if dev.type == "cuda" and pipeline.capturable(cfg, mesh):
+        return make_replay_step(cfg, dev), True
+    return functools.partial(replay_step, cfg=cfg), False
+
+
+def _kept(out: pipeline.StepOutput, captured: bool) -> pipeline.StepOutput:
+    """A step's outputs to keep past the next step: a captured step's are
+    its graph's static buffers, which the next replay overwrites."""
+    return pipeline.StepOutput(*(x.clone() for x in out)) if captured else out
 
 
 # The live step's packed output: the pose (16), the covariance (36), then
@@ -202,7 +253,10 @@ def run_sequence(
     (poses (T,4,4) float64, outputs list, RateReport), plus the final
     LocusState when return_state=True. With collect_outputs and
     cfg.b_enable_computation_time_profiling, each scan's latency is
-    measured up to a device synchronisation.
+    measured up to a device synchronisation. On the card, where
+    `pipeline.capturable(cfg)` holds, every scan replays
+    `make_replay_step`'s CUDA graph (the first one also captures it) and
+    the report says so (`captured`); elsewhere the eager step runs.
 
     `backend` (a backend.PoseGraphBackend) runs the online SLAM loop: each
     inserted keyframe is registered with its verification cloud
@@ -212,17 +266,19 @@ def run_sequence(
     reference's external-backend contract, PointCloudLocalization.h:114-117)."""
     cfg = cfg or LocusConfig()
     dev = resolve_device(device)
+    report = RateReport()
+    rstep, report.captured = _stepper(cfg, dev)
     state = pipeline.init_state_from_config(
         cfg, initial_pose=torch.as_tensor(seq.gt_poses[0], dtype=torch.float32), device=dev
     )
     n = len(seq) if max_scans is None else min(max_scans, len(seq))
-    report = RateReport()
     device_outs = []
     kf_since_opt = 0
     for i in range(n):
         args = scan_inputs(seq, i, cfg, dev)
         t0 = time.perf_counter()
-        state, out = replay_step(state, *args, cfg=cfg)
+        state, out = rstep(state, *args)
+        out = _kept(out, report.captured)
         if collect_outputs and cfg.b_enable_computation_time_profiling:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -279,16 +335,24 @@ def stack_packed(packed_list):
     return {k: torch.stack([p[k] for p in packed_list], dim=1) for k in packed_list[0]}
 
 
-def _replay(cfg: LocusConfig, state, packed, report: Optional[RateReport], outputs: Optional[list] = None):
-    """Step through the T scans of `packed`; returns (state, (poses,
-    condition numbers, map sizes)) stacked over the scans. With a report,
-    each scan is timed up to a device synchronisation; with an `outputs`
-    list, each scan's whole StepOutput is appended to it."""
+def _replay(cfg: LocusConfig, state, packed, report: Optional[RateReport], outputs: Optional[list] = None,
+            rstep=None, captured: bool = False):
+    """Step through the T scans of `packed` with `rstep` (default: the eager
+    `replay_step`; `captured`: a captured step's, whose outputs are cloned
+    before the next replay); returns (state, (poses, condition numbers, map
+    sizes)) stacked over the scans. With a report, each scan is timed up
+    to a device synchronisation and the report says whether the step ran
+    captured; with an `outputs` list, each scan's whole StepOutput is
+    appended to it."""
+    rstep = rstep or functools.partial(replay_step, cfg=cfg)
+    if report is not None:
+        report.captured = captured
     poses, conds, sizes = [], [], []
     dev = packed["scan_xyz"].device
     for i in range(packed["scan_xyz"].shape[0]):
         t0 = time.perf_counter()
-        state, out = replay_step(state, *(packed[k][i] for k in PACKED_KEYS), cfg=cfg)
+        state, out = rstep(state, *(packed[k][i] for k in PACKED_KEYS))
+        out = _kept(out, captured)
         if report is not None:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -324,18 +388,28 @@ def make_scan_replay(cfg: LocusConfig, mesh=None):
     `make_scan_replay`): replay(state, packed, report=None, outputs=None)
     -> (state, (poses (T,4,4), cond (T,), map_sizes (T,))). It is the
     reference the batched replay is held against. The JAX `unroll` is a
-    `lax.scan` notion with no counterpart.
+    `lax.scan` notion with no counterpart. On the card, where
+    `pipeline.capturable(cfg, mesh)` holds, every scan is a replay of one
+    CUDA graph (`make_replay_step`, captured at the first call and kept
+    for every later one); elsewhere the eager step. The report says which
+    (`captured`). The returned state is the graph's static state, which
+    the next call of this replay overwrites.
 
     `mesh`: one sequence with its map split over the mesh's "map" axis
     (the big-map deployment); every rank calls the replay with the same
     packed scans and its shard of the state (`mesh.shard_state`), and
     gets the same poses and whole-map sizes."""
     _check_mesh(cfg, mesh)
+    steppers = {}   # by device: one captured graph for every call on the card
 
     def replay(state, packed, report: Optional[RateReport] = None, outputs: Optional[list] = None):
         _check_sharded(cfg, mesh, state)
+        dev = packed["scan_xyz"].device
+        if dev not in steppers:
+            steppers[dev] = _stepper(cfg, dev, mesh)
+        rstep, captured = steppers[dev]
         with shard_context(mesh):
-            return _replay(cfg, state, packed, report, outputs)
+            return _replay(cfg, state, packed, report, outputs, rstep, captured)
 
     return replay
 

@@ -7,6 +7,8 @@ from functools import lru_cache
 
 import torch
 
+from locus_tpu_torch.ops import graph
+
 
 def chol_solve(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Solve H x = g for small SPD H (...,n,n) by Cholesky factor and two
@@ -18,9 +20,15 @@ def chol_solve(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     The solve runs in float64 and is rounded to f32 once: a batched solve
     may take another code path than a single one (and round differently),
     but float64 differences that small almost never survive the rounding,
-    so a batch member gets the solution of its single solve."""
+    so a batch member gets the solution of its single solve.
+
+    The two triangular solves are written out (the bits of
+    `torch.cholesky_solve` on the CPU): on the card its cuSOLVER call
+    cannot sit in a CUDA graph's conditional body, where the GICP trips
+    that call this run."""
     L, _ = torch.linalg.cholesky_ex(H.double())
-    return torch.cholesky_solve(g.double()[..., None], L)[..., 0].to(g.dtype)
+    y = torch.linalg.solve_triangular(L, g.double()[..., None], upper=False)
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)[..., 0].to(g.dtype)
 
 
 def sum_last(x: torch.Tensor) -> torch.Tensor:
@@ -83,7 +91,7 @@ def jacobi_eigh(A: torch.Tensor, sweeps: int = 6):
     eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape)
     V = eye
     rounds = [
-        (torch.tensor(pp, device=A.device), torch.tensor(qq, device=A.device))
+        (graph.constant(tuple(pp), torch.int64, A.device), graph.constant(tuple(qq), torch.int64, A.device))
         for pp, qq in _round_indices(n)
     ]
     for _ in range(sweeps):

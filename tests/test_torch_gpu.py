@@ -21,7 +21,7 @@ from locus_tpu_torch import config as cfg_mod, pipeline, runner
 from locus_tpu_torch.core.cloud import PointCloud
 from locus_tpu_torch.io.dataset import make_tunnel_sequence
 from locus_tpu_torch.ops import dispatch, voxel
-from locus_tpu_torch.ops.kernels import moments as tmom, nn as tnn
+from locus_tpu_torch.ops.kernels import moments as tmom, nn as tnn, read_launches, reset_launches
 
 pytestmark = pytest.mark.gpu
 
@@ -572,17 +572,102 @@ def _small_cfg():
 
 def test_replay_defaults_to_the_card_and_matches_plain(cuda_device):
     """run_sequence with no device runs on the card through the kernels,
-    and gives the same poses as the plain versions on the card."""
+    and gives the same poses as the plain versions on the card. Its step
+    is a captured graph: the counters see its launches when read."""
     seq = make_tunnel_sequence(num_scans=6, azimuth_steps=256, step=0.3, seed=1)
     cfg = _small_cfg()
-    tmom.launches = 0
-    before = dict(tnn.launches)
-    poses, _, _, state = runner.run_sequence(seq, cfg, return_state=True)
-    assert state.map.cloud.xyz.is_cuda
-    assert tmom.launches > 0 and all(tnn.launches[b] > before[b] for b in before)
+    reset_launches()
+    poses, _, report, state = runner.run_sequence(seq, cfg, return_state=True)
+    assert state.map.cloud.xyz.is_cuda and report.captured
+    launches = read_launches()
+    assert all(launches[k] > 0 for k in ("moments_visits", "nn_visits_scan", "nn_visits_map")), launches
     with dispatch.no_kernels():
         plain, _, _ = runner.run_sequence(seq, cfg, device=cuda_device)
     np.testing.assert_array_equal(poses, plain)
+
+
+# -- the captured step (runner.make_replay_step, pipeline.make_step) ------
+
+def _eager_replay(cfg, seq, dev):
+    """The eager replay_step over `seq`: (poses, every StepOutput on the
+    host, launches)."""
+    state = pipeline.init_state(cfg, initial_pose=torch.as_tensor(seq.gt_poses[0], dtype=torch.float32), device=dev)
+    reset_launches()
+    poses, outs = [], []
+    for i in range(len(seq)):
+        state, out = runner.replay_step(state, *runner.scan_inputs(seq, i, cfg, dev), cfg=cfg)
+        outs.append([np_(x) for x in out])
+    return np.stack([o[0] for o in outs]), outs, read_launches()
+
+
+def test_captured_replay_matches_eager_on_the_card(cuda_device):
+    """make_replay_step (one CUDA graph a scan, the GICP trips gated on the
+    device) against the eager replay_step on the 12-scan tunnel: every
+    output of every scan bit for bit, and the same launches of B1 and B2."""
+    seq = make_tunnel_sequence(num_scans=12, azimuth_steps=256, step=0.3, seed=1)
+    cfg = _small_cfg()
+    eager, eager_outs, eager_launches = _eager_replay(cfg, seq, cuda_device)
+    rstep = runner.make_replay_step(cfg)
+    state = pipeline.init_state(cfg, initial_pose=torch.as_tensor(seq.gt_poses[0], dtype=torch.float32))
+    reset_launches()
+    for i in range(len(seq)):
+        state, out = rstep(state, *runner.scan_inputs(seq, i, cfg, cuda_device))
+        for name, a, b in zip(out._fields, out, eager_outs[i]):
+            np.testing.assert_array_equal(np_(a), b, err_msg=f"scan {i}: {name}")
+    assert read_launches() == eager_launches
+    assert max(int(o[11]) for o in eager_outs) > 1       # loc_iterations: trips ran past the first
+
+
+def test_captured_replay_allocates_nothing_on_a_second_replay(cuda_device):
+    seq = make_tunnel_sequence(num_scans=3, azimuth_steps=256, step=0.3, seed=1)
+    cfg = _small_cfg()
+    rstep = runner.make_replay_step(cfg)
+    state = pipeline.init_state(cfg, initial_pose=torch.as_tensor(seq.gt_poses[0], dtype=torch.float32))
+    args = [runner.scan_inputs(seq, i, cfg, cuda_device) for i in range(3)]
+    state, _ = rstep(state, *args[0])         # warm-up, capture, replay
+    state, _ = rstep(state, *args[1])
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    state, out = rstep(state, *args[2])
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+    assert np.isfinite(np_(out.pose)).all()
+
+
+def test_captured_step_copies_a_state_from_outside(cuda_device):
+    """make_step's graph takes any state: a fresh one and a copy of the
+    eager run's are copied into its static buffers, and it goes on as the
+    eager step does from them, bit for bit; the state it returns is its
+    own, overwritten by the next call."""
+    seq = make_tunnel_sequence(num_scans=8, azimuth_steps=256, step=0.3, seed=1)
+    cfg = _small_cfg()
+    step = pipeline.make_step(cfg)
+    raws = []
+    for i in range(len(seq)):
+        xyz, mask, stamp, *_ = runner.scan_inputs(seq, i, cfg, cuda_device)
+        raws.append((runner.raw_cloud(xyz, mask), stamp, torch.tensor(i, dtype=torch.int32, device=cuda_device)))
+
+    def fresh():
+        return pipeline.init_state(cfg, initial_pose=torch.as_tensor(seq.gt_poses[0], dtype=torch.float32))
+
+    eager_state, eager_poses, states = fresh(), [], []
+    for raw, stamp, i in raws:
+        states.append(pipeline._map_tree(torch.clone, eager_state))
+        eager_state, out = pipeline.step(eager_state, raw, stamp, cfg, seq=i)
+        eager_poses.append(np_(out.pose))
+    state = fresh()
+    for k, (raw, stamp, i) in enumerate(raws[:4]):
+        state, out = step(state, raw, stamp, seq=i)
+        np.testing.assert_array_equal(np_(out.pose), eager_poses[k])
+    returned = state
+    state, out = step(fresh(), *raws[0][:2], seq=raws[0][2])       # a fresh state, copied in
+    np.testing.assert_array_equal(np_(out.pose), eager_poses[0])
+    assert state is returned                                      # the graph's own buffers
+    for k in (5, 2, 6):                                           # copies of the eager run's states
+        state, out = step(pipeline._map_tree(torch.clone, states[k]), *raws[k][:2], seq=raws[k][2])
+        np.testing.assert_array_equal(np_(out.pose), eager_poses[k])
+    state, out = step(state, *raws[7][:2], seq=raws[7][2])        # and on from its own
+    np.testing.assert_array_equal(np_(out.pose), eager_poses[7])
 
 
 def test_init_state_defaults_to_the_card(cuda_device):

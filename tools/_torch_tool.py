@@ -27,14 +27,18 @@ def device(arg):
 
 
 def device_record(dev) -> dict:
-    """{"device", "power_limit_w"} of `dev`: on a card, nvidia-smi's name
-    and power limit (W); on the CPU "cpu" and None."""
+    """{"device", "power_limit_w", "captured"} of `dev`: on a card,
+    nvidia-smi's name and power limit (W); on the CPU "cpu" and None.
+    "captured": how many steps this process has run as CUDA graphs
+    (`ops.graph.CapturedStep`), 0 where every step ran eagerly."""
+    from locus_tpu_torch.ops import graph
+
     if dev.type != "cuda":
-        return {"device": "cpu", "power_limit_w": None}
+        return {"device": "cpu", "power_limit_w": None, "captured": graph.captures}
     line = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     name, power = (s.strip() for s in line.rsplit(",", 1))
-    return {"device": name, "power_limit_w": float(power.split()[0])}
+    return {"device": name, "power_limit_w": float(power.split()[0]), "captured": graph.captures}
 
 
 def sync(torch, dev) -> None:

@@ -65,6 +65,8 @@ def run(base, scans: int, azimuth: int, reps: int, dev) -> dict:
                                      _torch_tool.window(packed, 0, warm_hi))
         if name == "base":
             default_poses = poses.cpu().numpy()
+        # a copy: the replay's returned state is its step's, which the next call overwrites
+        warm = _torch_tool.copy_state(warm)
         runs[name] = (scans - lo, lambda warm=warm: _torch_tool.copy_state(warm),
                       lambda st, outs, replay=replay: replay(st, timed_scans, outputs=outs)[1][0])
     timed = _torch_tool.interleaved(runs, {name: reps for name in runs}, dev)

@@ -69,7 +69,8 @@ def run(cfg, scans: int, azimuth: int, reps: int, dev) -> dict:
         return pipeline.init_state(cfg, initial_pose=pose0, device=dev)
 
     wins = windows(scans)
-    warm, _ = replay(fresh(), _torch_tool.window(packed, 0, scans // 9))
+    # a copy: the replay's returned state is its step's, which the next call overwrites
+    warm = _torch_tool.copy_state(replay(fresh(), _torch_tool.window(packed, 0, scans // 9))[0])
     runs, counts = {}, {}
     for key, (lo, hi, after_warm, long) in wins.items():
         start = (lambda: _torch_tool.copy_state(warm)) if after_warm else fresh

@@ -28,6 +28,15 @@ merger's heartbeats and health, the merge of the Husky's three lidars
 (configs/husky.yaml, configs/husky_sensors.yaml) and one step, on scans
 parsed up front from the phase's bag (written under chiprun_out/).
 
+On the default path (gicp, one robot) it also profiles the captured step
+(runner.make_replay_step: the push of the sensor windows and the step as
+one CUDA graph a scan) on the same scans from the same state, in the same
+call: wall ms a scan untraced and traced, device busy ms and idle share,
+graph launches, kernels on the device and kernel launches from the host,
+and host synchronisations a scan (the "captured" record, traced as chip_smoke.py's
+`compiled` phase traces it; per-stage rows need the eager step, whose
+stage scopes a replay does not run).
+
 With --robots B > 1 it profiles the batched step instead: B robots, each
 on its own sequence (chip_smoke.robot_sequences: steps 0.30, 0.35, ...,
 seeds 0, 1, ...; with --config ndt|features|voxel_hash that path's
@@ -130,6 +139,34 @@ def husky_steps(torch, num_scans, dev):
     return step, cfg, husky_init(torch, cfg, data["seq"], data["lidars"], dev)
 
 
+def captured_profile(torch, runner, cfg, inputs, state0, first, n):
+    """The captured step on the scans `first`..`first + n - 1` of `inputs`,
+    from `state0` stepped through the scans before them: untraced, then
+    traced (chip_smoke's `trace_steps`), each from a copy of the same
+    state."""
+    from _torch_tool import copy_state
+    from chip_smoke import trace_steps
+
+    rstep = runner.make_replay_step(cfg)
+    state = copy_state(state0)
+    for i in range(first):
+        state, _ = rstep(state, *inputs[i])
+    start = copy_state(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = copy_state(start)
+    for i in range(first, first + n):
+        st, _ = rstep(st, *inputs[i])
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t0) * 1e3 / n
+    traced = trace_steps(torch, rstep, copy_state(start), inputs[first:first + n])
+    return traced | {
+        "setup_seconds": rstep.graph.setup_seconds,
+        "untraced_wall_ms_per_scan": untraced_ms,
+        "device_idle_share_untraced": 1.0 - traced["device_busy_ms_per_scan"] / untraced_ms,
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scans", type=int, default=48)
@@ -184,6 +221,7 @@ def main() -> int:
             return runner.replay_step(state, *inputs[i], cfg=cfg)
 
     first = args.scans - args.traced
+    state0 = state
     for i in range(first):
         state, _ = step(state, i)
     torch.cuda.synchronize()
@@ -203,9 +241,10 @@ def main() -> int:
         t0 = time.perf_counter()
         for i in range(first, args.scans):
             state, out = step(state, i)
-            iters.append((torch.as_tensor(out.odom_iterations).tolist(), torch.as_tensor(out.loc_iterations).tolist()))
+            iters.append((torch.as_tensor(out.odom_iterations), torch.as_tensor(out.loc_iterations)))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
+    iters = [(o.tolist(), loc.tolist()) for o, loc in iters]     # read after the window, not inside it
     n = args.traced
     events = prof.key_averages()
     cuda = torch.autograd.DeviceType.CUDA
@@ -250,12 +289,14 @@ def main() -> int:
             ((e.key[:80], e.self_cpu_time_total / 1e3 / n, e.count / n) for e in host.values()), key=lambda x: -x[1]
         )[:20],
     }
+    if args.config == "gicp" and args.robots == 1:
+        result["captured"] = captured_profile(torch, runner, cfg, inputs, state0, first, n)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
     print(json.dumps({k: result[k] for k in (
         "device", "robots", "config", "untraced_wall_ms_per_scan", "wall_ms_per_scan", "device_busy_ms_per_scan", "device_idle_share_untraced",
-        "kernel_launches_per_scan", "host_syncs_per_scan", "stages")}))
+        "kernel_launches_per_scan", "host_syncs_per_scan", "stages", "captured") if k in result}))
     return 0
 
 
