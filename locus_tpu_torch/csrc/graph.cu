@@ -18,12 +18,30 @@
 // host read, no launch of the body's kernels. The set kernel is the only
 // extra launch a gate costs (1 thread; bound by the launch, not by
 // bytes or operations).
+//
+//   locus_stamp     a one-thread kernel that reads the device's nanosecond
+//                   clock (%globaltimer) and writes it to slot `slot` of
+//                   row (*index mod rows) of `ring`, an int64 (rows,
+//                   width) array; with `bump` it then moves *index on to
+//                   the next row. Captured into a step's graph it stamps
+//                   the replay's head, its tail (the bump) and each stage's
+//                   entry and exit (`ops/graph.py::stage`); launched
+//                   eagerly it reads the clock once (the host-to-device
+//                   clock offset).
 #include <cuda_runtime.h>
 
 namespace {
 
 __global__ void set_conditional_kernel(cudaGraphConditionalHandle handle, const bool* pred) {
   cudaGraphSetConditional(handle, *pred ? 1u : 0u);
+}
+
+__global__ void stamp_kernel(long long* ring, long long* index, long long rows, int width, int slot, int bump) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  const long long row = *index % rows;
+  ring[row * width + slot] = static_cast<long long>(now);
+  if (bump) *index = *index + 1;
 }
 
 }  // namespace
@@ -65,4 +83,10 @@ extern "C" int locus_if_begin(void* capturing, const void* pred, void* body) {
 extern "C" int locus_if_end(void* body) {
   cudaGraph_t graph;
   return static_cast<int>(cudaStreamEndCapture(static_cast<cudaStream_t>(body), &graph));
+}
+
+extern "C" int locus_stamp(void* stream, void* ring, void* index, long long rows, int width, int slot, int bump) {
+  stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(ring), static_cast<long long*>(index), rows, width, slot, bump);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
 """Diagnostics aggregation and observability records (counterpart of
-`locus_tpu/diagnostics.py`; host-side numpy, no tensors).
+`locus_tpu/diagnostics.py`; host-side numpy, no tensors), and the
+stage timer of the program's host spans.
 
 Native replacement for the reference's /diagnostics publishing
 (diagnostic_msgs aggregation, Locus.cc:553-561;
@@ -10,10 +11,12 @@ from __future__ import annotations
 
 import json
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
+from torch.profiler import record_function
 
 # diagnostic_msgs levels
 OK = 0
@@ -125,31 +128,57 @@ class DiagnosticsLog:
                 f.write(json.dumps(r.to_dict()) + "\n")
 
 
+class _Span:
+    """One span of a StageTimer: a `record_function` of its name, and its
+    start and end on the host's `time.perf_counter_ns` clock."""
+
+    __slots__ = ("timer", "stage", "scope", "t0")
+
+    def __init__(self, timer: "StageTimer", stage: str):
+        self.timer, self.stage = timer, stage
+
+    def __enter__(self):
+        self.scope = record_function(self.stage)
+        self.scope.__enter__()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.timer.span(self.stage, self.t0, time.perf_counter_ns())
+        self.scope.__exit__(*exc)
+
+
 class StageTimer:
     """Per-stage wall timing (the reference's lidar_callback_duration /
     scan_to_scan_duration / scan_to_map_duration topics). Kernel launches
     return before the card has run them, so a stage timed around card work
     must end in a host read of its result (LiveSession times a scan up to
-    the fetch of its pose)."""
+    the fetch of its pose).
 
-    def __init__(self):
-        self.samples: dict[str, list] = {}
+    `time(stage)` is also a `record_function(stage)`, so a profiler trace
+    shows the same span, and keeps the span's (start, end) in
+    `time.perf_counter_ns` (`spans`). Each stage keeps its last `keep`
+    samples and spans."""
+
+    def __init__(self, keep: int = 1 << 16):
+        self.keep = keep
+        self.samples: dict[str, deque] = {}
+        self.intervals: dict[str, deque] = {}
 
     def record(self, stage: str, seconds: float):
-        self.samples.setdefault(stage, []).append(seconds)
+        self.samples.setdefault(stage, deque(maxlen=self.keep)).append(seconds)
 
-    def time(self, stage: str):
-        timer = self
+    def span(self, stage: str, start_ns: int, end_ns: int):
+        """Record a span of `stage` from `start_ns` to `end_ns`."""
+        self.record(stage, (end_ns - start_ns) * 1e-9)
+        self.intervals.setdefault(stage, deque(maxlen=self.keep)).append((start_ns, end_ns))
 
-        class _Ctx:
-            def __enter__(self):
-                self.t0 = time.perf_counter()
-                return self
+    def time(self, stage: str) -> _Span:
+        return _Span(self, stage)
 
-            def __exit__(self, *a):
-                timer.record(stage, time.perf_counter() - self.t0)
-
-        return _Ctx()
+    def spans(self, stage: str) -> np.ndarray:
+        """(n, 2) int64: the kept spans of `stage`, (start, end) in ns."""
+        return np.array(self.intervals.get(stage, ()), dtype=np.int64).reshape(-1, 2)
 
     def summary(self) -> dict:
         return {
@@ -161,3 +190,9 @@ class StageTimer:
             for k, v in self.samples.items()
             if v
         }
+
+
+# The program's own spans, process-wide: the merger's `merger.observe`,
+# `merger.health` and `merger.merge`, and the sharded deployments'
+# `gather_ranked`.
+process_timer = StageTimer()

@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from locus_tpu_torch import diagnostics
 from locus_tpu_torch.config import MergerConfig
 from locus_tpu_torch.core import cloud as cloud_lib
 from locus_tpu_torch.core.cloud import PointCloud
@@ -46,19 +47,21 @@ def init_state(num_lidars: int, device=None) -> MergerState:
 
 def observe(state: MergerState, lidar_index: int, stamp) -> MergerState:
     """Record a message reception (health monitor heartbeat)."""
-    last, alive = state.last_reception.clone(), state.alive.clone()
-    last[lidar_index] = stamp
-    alive[lidar_index] = True
-    return MergerState(last, alive)
+    with diagnostics.process_timer.time("merger.observe"):
+        last, alive = state.last_reception.clone(), state.alive.clone()
+        last[lidar_index] = stamp
+        alive[lidar_index] = True
+        return MergerState(last, alive)
 
 
 def health(state: MergerState, now, timeout: float = 1.0) -> torch.Tensor:
     """(L,) bool — per-lidar liveness (failure_detection /
     resurrection_detection equivalent: purely a function of reception
     times, so 'resurrection' is automatic)."""
-    if not isinstance(now, torch.Tensor):
-        now = float(now)   # a Python float keeps the difference in f32, as in the JAX package
-    return (now - state.last_reception) < timeout
+    with diagnostics.process_timer.time("merger.health"):
+        if not isinstance(now, torch.Tensor):
+            now = float(now)   # a Python float keeps the difference in f32, as in the JAX package
+        return (now - state.last_reception) < timeout
 
 
 def merge(
@@ -77,31 +80,33 @@ def merge(
     False) are masked out — the 3->2->1->0 failover.
     Optional random / radius filters mirror PointCloudMerger.cc:123-178;
     the random filter draws from `generator` (a CPU generator seeded with
-    0 when None).
+    0 when None). Each of `observe`, `health` and `merge` is a span of
+    `diagnostics.process_timer`.
     """
-    if len(clouds) != cfg.number_of_velodynes:
-        # the reference builds its sync graph from this count and warns
-        # on other values (PointCloudMerger.cc:64-84)
-        raise ValueError(
-            f"merge got {len(clouds)} clouds but cfg.number_of_velodynes="
-            f"{cfg.number_of_velodynes}"
-        )
-    transformed = []
-    for i, (c, T) in enumerate(zip(clouds, extrinsics)):
-        c = c.transform(torch.as_tensor(T, dtype=torch.float32, device=c.xyz.device))
-        # upstream pcl/PassThrough per lidar (locus.launch:90-133:
-        # z in ±passthrough_limit around base_link, the frame transform
-        # itself is the line above)
-        if cfg.b_use_passthrough:
-            c = filters.passthrough(c, "z", -cfg.passthrough_limit, cfg.passthrough_limit)
-        c = c.with_mask(c.mask & alive[i])
-        transformed.append(c)
-    merged = cloud_lib.concatenate(transformed, capacity=capacity)
+    with diagnostics.process_timer.time("merger.merge"):
+        if len(clouds) != cfg.number_of_velodynes:
+            # the reference builds its sync graph from this count and warns
+            # on other values (PointCloudMerger.cc:64-84)
+            raise ValueError(
+                f"merge got {len(clouds)} clouds but cfg.number_of_velodynes="
+                f"{cfg.number_of_velodynes}"
+            )
+        transformed = []
+        for i, (c, T) in enumerate(zip(clouds, extrinsics)):
+            c = c.transform(torch.as_tensor(T, dtype=torch.float32, device=c.xyz.device))
+            # upstream pcl/PassThrough per lidar (locus.launch:90-133:
+            # z in ±passthrough_limit around base_link, the frame transform
+            # itself is the line above)
+            if cfg.b_use_passthrough:
+                c = filters.passthrough(c, "z", -cfg.passthrough_limit, cfg.passthrough_limit)
+            c = c.with_mask(c.mask & alive[i])
+            transformed.append(c)
+        merged = cloud_lib.concatenate(transformed, capacity=capacity)
 
-    if cfg.b_use_random_filter:
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        merged = filters.random_sample(merged, generator, cfg.decimate_percentage)
-    if cfg.b_use_radius_filter:
-        merged = filters.radius_outlier(merged, cfg.radius, cfg.radius_knn)
-    return merged
+        if cfg.b_use_random_filter:
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            merged = filters.random_sample(merged, generator, cfg.decimate_percentage)
+        if cfg.b_use_radius_filter:
+            merged = filters.radius_outlier(merged, cfg.radius, cfg.radius_knn)
+        return merged

@@ -23,6 +23,12 @@ holds how many of the gates that share it ran their body: the iteration
 count of a loop of gated trips, or the predicate of a single gate. The
 launch counters read it (`fold_launches`).
 
+`stage(name)` scopes a stage of the step: a `record_function(name)`, and
+inside a graph that records with stamps (`CapturedStep(stamps=True)`) a
+stamp of the device's clock at its entry and at its exit. Each replay
+also stamps its head and tail on the device and its call on the host
+(`replay_records`).
+
 The port imports no JAX: this module is the whole of what it needs.
 """
 from __future__ import annotations
@@ -35,8 +41,10 @@ import operator
 import time
 import weakref
 
+import numpy as np
 import torch
 from torch.overrides import TorchFunctionMode
+from torch.profiler import record_function
 from torch.utils._python_dispatch import TorchDispatchMode
 
 # None: eager; a _Masked: masked; a _Capture: capture
@@ -240,6 +248,8 @@ def _lib():
         lib.locus_if_begin.restype = ctypes.c_int
         lib.locus_if_end.argtypes = [ctypes.c_void_p]
         lib.locus_if_end.restype = ctypes.c_int
+        lib.locus_stamp.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+        lib.locus_stamp.restype = ctypes.c_int
         _graph_lib = lib
     return _graph_lib
 
@@ -248,7 +258,8 @@ class _Capture:
     """The bookkeeping of one capture: the body stream and its memory pool,
     and which kernel launches fell in which gated region."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, stamps=None):
+        self.stamps = stamps      # the step's _Stamps, or None: record no stamp
         self.body = torch.cuda.Stream(device)
         # The body's allocations: a pool of their own, since the graph's
         # pool takes only the capturing stream's
@@ -283,6 +294,28 @@ class _Capture:
         if key in self.regions and self.regions[key][1] != per_trip:
             raise RuntimeError(f"the gates of one region launched {self.regions[key][1]} and {per_trip}")
         self.regions.setdefault(key, (trips, per_trip))
+
+
+@contextlib.contextmanager
+def stage(name: str):
+    """A stage of the step: `record_function(name)`, so a profiler trace
+    buckets host and device time by it. While a `CapturedStep` records
+    with stamps, the graph also stamps the device's clock at the stage's
+    entry and exit (`replay_records`). A stage inside a gated body raises
+    at capture: a body that does not run would leave half a pair."""
+    mode = _mode.get()
+    stamps = None
+    if isinstance(mode, _Capture):
+        if mode.inside:
+            raise RuntimeError(f"the stage {name!r} is inside a gated body")
+        stamps = mode.stamps
+    with record_function(name):
+        if stamps is None:
+            yield
+            return
+        entry = stamps.stamp()
+        yield
+        stamps.stages.append((name, entry, stamps.stamp()))
 
 
 def _check_status(status: int, what: str) -> None:
@@ -329,6 +362,121 @@ class _Account:
 # launches of its last replays are read
 _accounts: list = []
 
+# A replay's stamps: a row of the device ring (slot 0 the head, then each
+# stage's entry and exit, then the tail) and a row of the host ring, at
+# the replay's index modulo the rows. 8192 rows hold 96 s of replays at
+# 85 a second.
+STAMP_ROWS = 8192
+STAMP_SLOTS = 32
+HOST_STAMPS = ("call", "replay", "return")
+
+
+def clock_offset(device, tries: int = 8) -> tuple[int, int]:
+    """(offset, bracket) in ns: the device's clock (%globaltimer) less the
+    host's (`time.perf_counter_ns`), and the width of the narrowest of
+    `tries` brackets (a host stamp, an eager stamp kernel, a synchronise,
+    a host stamp) that the device's reading fell in; the offset is taken
+    at the bracket's middle, so its error is at most half the width."""
+    dev = torch.device(device)
+    lib = _lib()
+    probe = torch.zeros(tries, dtype=torch.int64, device=dev)
+    index = torch.zeros(1, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev)
+    brackets = []
+    torch.cuda.synchronize(dev)
+    for k in range(tries):
+        t0 = time.perf_counter_ns()
+        _check_status(lib.locus_stamp(stream.cuda_stream, probe.data_ptr(), index.data_ptr(), 1, tries, k, 0),
+                      "locus_stamp")
+        stream.synchronize()
+        brackets.append((t0, time.perf_counter_ns()))
+    device_ns = probe.tolist()
+    k = min(range(tries), key=lambda i: brackets[i][1] - brackets[i][0])
+    t0, t1 = brackets[k]
+    return device_ns[k] - (t0 + t1) // 2, t1 - t0
+
+
+class _Stamps:
+    """The stamps of one captured step's replays: a ring of device rows
+    (int64 ns of %globaltimer) that the graph's stamp nodes write, a ring
+    of host rows (`time.perf_counter_ns` at the call, at `replay()` and at
+    its return), the stages' slots, and the clock offset measured at
+    capture."""
+
+    def __init__(self, name: str, device: torch.device):
+        self.name = name
+        self.ring = torch.zeros((STAMP_ROWS, STAMP_SLOTS), dtype=torch.int64, device=device)
+        self.index = torch.zeros(1, dtype=torch.int64, device=device)
+        self.host = np.zeros((STAMP_ROWS, len(HOST_STAMPS)), dtype=np.int64)
+        self.stages: list = []     # (name, entry slot, exit slot)
+        self.slots = 0
+        self.tail = None
+        self.replays = 0
+        self.offset_ns = self.bracket_ns = 0
+
+    def stamp(self, bump: bool = False) -> int:
+        """Capture a stamp into the next slot, on the current stream."""
+        if self.slots >= STAMP_SLOTS:
+            raise RuntimeError(f"{self.name}: more than {STAMP_SLOTS} stamps a replay")
+        slot, self.slots = self.slots, self.slots + 1
+        stream = torch.cuda.current_stream(self.ring.device)
+        status = _lib().locus_stamp(stream.cuda_stream, self.ring.data_ptr(), self.index.data_ptr(),
+                                    STAMP_ROWS, STAMP_SLOTS, slot, int(bump))
+        _check_status(status, "locus_stamp")
+        return slot
+
+    def add(self, host_ns: tuple) -> None:
+        self.host[self.replays % STAMP_ROWS] = host_ns
+        self.replays += 1
+
+    def read(self) -> dict:
+        n = min(self.replays, STAMP_ROWS)
+        return {
+            "step": self.name,
+            "replays": self.replays,
+            "stages": [name for name, _, _ in self.stages],
+            "stage_slots": [(a, b) for _, a, b in self.stages],
+            "head_slot": 0,
+            "tail_slot": self.tail,
+            "device_ns": self.ring[:n].cpu().numpy()[:, : self.slots],
+            "host_ns": self.host[:n].copy(),
+            "host_stamps": HOST_STAMPS,
+            "offset_ns": self.offset_ns,
+            "bracket_ns": self.bracket_ns,
+        }
+
+    def drop(self) -> None:
+        if self.replays:
+            self.index.zero_()
+            self.ring.zero_()
+            self.replays = 0
+
+
+# the stamps of the captured steps that record them, kept past their step
+# until dropped
+_stamps: list = []
+
+
+def replay_records() -> list:
+    """The stamps of every captured step that replayed since the last
+    `drop_replays`, one dict a step, its rows as numpy (one device-to-host
+    copy a step): `stages` and `stage_slots` (each stage's entry and exit
+    slot), `head_slot`, `tail_slot`, `device_ns` (rows, slots) of the
+    device's clock, `host_ns` (rows, 3) of the host's at `host_stamps`,
+    `replays` (the count; the rows are those of replays modulo
+    `STAMP_ROWS`, so past that count the oldest row is at `replays %
+    STAMP_ROWS`), and `offset_ns` (the device's clock less the host's)
+    with its `bracket_ns`. Reading consumes nothing."""
+    return [s.read() for s, _ in _stamps if s.replays]
+
+
+def drop_replays() -> None:
+    """Forget the stamps of every replay so far; those of steps that are
+    gone are dropped."""
+    for s, _ in _stamps:
+        s.drop()
+    _stamps[:] = [(s, step) for s, step in _stamps if step() is not None]
+
 
 class CapturedStep:
     """`fn(state, *inputs) -> (state, outputs)` recorded once as one CUDA
@@ -351,21 +499,34 @@ class CapturedStep:
     eager step. Kernel launches inside the graph are counted at capture
     (the warm-up's and the capture's own do not count): every replay adds
     the launches outside any gate once, and each gated region's launches
-    times the trips it ran, held on the device until `fold_launches`."""
+    times the trips it ran, held on the device until `fold_launches`.
 
-    def __init__(self, fn, name: str):
+    With `stamps` (LOCUS's `b_enable_computation_time_profiling`) the
+    graph also stamps the device's clock at its head, at its tail and at
+    each `stage`'s entry and exit, and every call stamps the host's clock
+    (`replay_records`); without, the graph holds no stamp node and a call
+    reads no clock."""
+
+    def __init__(self, fn, name: str, stamps: bool = False):
         self.fn = fn
         self.name = name
+        self.stamps = stamps
         self.graph = None
         self.setup_seconds = {}   # the first call's warm-up, recording and instantiation
 
     def __call__(self, state, *inputs):
+        t_call = time.perf_counter_ns() if self.stamps else 0
         if self.graph is None:
             self._capture(state, inputs)
         else:
             self._load(self._state_leaves, _leaves(state))
             self._load(self._input_leaves, _leaves(inputs))
-        self.graph.replay()
+        if self.stamps:
+            t_replay = time.perf_counter_ns()
+            self.graph.replay()
+            self.records.add((t_call, t_replay, time.perf_counter_ns()))
+        else:
+            self.graph.replay()
         self.account.replays += 1
         return self.state, self.out
 
@@ -396,8 +557,12 @@ class CapturedStep:
         torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
 
+        records = None
+        if self.stamps:
+            records = _Stamps(self.name, dev)
+            records.offset_ns, records.bracket_ns = clock_offset(dev)
         acc = torch.zeros(_MAX_REGIONS, dtype=torch.int64, device=dev)
-        cap = _Capture(dev)
+        cap = _Capture(dev, records)
         graph = torch.cuda.CUDAGraph()
         before = kernels.raw_launches()
         token = _mode.set(cap)
@@ -407,6 +572,8 @@ class CapturedStep:
             with torch.cuda.stream(stream):
                 graph.capture_begin()
                 try:
+                    if records is not None:
+                        records.stamp()
                     new_state, out = self.fn(self.state, *self.inputs)
                     self.out = self._close(new_state, out)
                     trips = [t for t, _ in cap.regions.values()]
@@ -414,6 +581,8 @@ class CapturedStep:
                         raise RuntimeError(f"{len(trips)} gated regions, at most {_MAX_REGIONS}")
                     if trips:
                         acc[: len(trips)].add_(torch.stack([t.to(torch.int64) for t in trips]))
+                    if records is not None:
+                        records.tail = records.stamp(bump=True)
                 except BaseException:
                     with contextlib.suppress(Exception):     # the error in flight names the op
                         graph.capture_end()
@@ -431,6 +600,9 @@ class CapturedStep:
         ungated = {k: v - cap.gated.get(k, 0) for k, v in captured.items() if v != cap.gated.get(k, 0)}
         self.account = _Account(self, ungated, regions, acc)
         _accounts.append(self.account)
+        if records is not None:
+            self.records = records
+            _stamps.append((records, weakref.ref(self)))
         # the trips tensors and the body pool live as long as the graph
         self._keep = (cap, [t for t, _ in cap.regions.values()])
         self.graph = graph

@@ -18,7 +18,8 @@ from datetime import timedelta
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
+
+from locus_tpu_torch import diagnostics
 
 
 def init_distributed(
@@ -68,7 +69,8 @@ def gather_ranked(x: torch.Tensor, mesh, axis: str = "map") -> list:
     n = mesh.shape[axis]
     if group is None or n == 1:
         return [x]
-    with record_function("gather_ranked"):
+    # the span that tools/torch_dist_smoke.py --trace-collectives reads
+    with diagnostics.process_timer.time("gather_ranked"):
         staged = x.device.type == "cuda" and mesh.backend != "nccl"
         src = x.detach().cpu() if staged else x.detach()
         src = (src.to(torch.uint8) if x.dtype == torch.bool else src).contiguous()   # bools travel as bytes

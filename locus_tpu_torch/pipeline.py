@@ -45,7 +45,6 @@ import functools
 from typing import NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
 
 from locus_tpu_torch import fusion, localization, odometry
 from locus_tpu_torch.config import LocusConfig
@@ -333,11 +332,14 @@ def step(
         gap = torch.where(stats.last_seq < 0, 0, gap)
         stats = stats._replace(dropped_msgs=stats.dropped_msgs + gap, last_seq=seq)
 
-    # Stage scopes carry the JAX package's named_scope names; a
-    # torch.profiler trace buckets host and device time by them
-    # (tools/torch_stage_profile.py). Without a profiler they cost ~1 us.
+    # Stage scopes carry the JAX package's named_scope names
+    # (`graph.stage`): a torch.profiler trace buckets host and device time
+    # by them, and a graph captured with stamps
+    # (b_enable_computation_time_profiling) stamps the device's clock at
+    # each one's entry and exit (`graph.replay_records`;
+    # tools/torch_stage_profile.py). Without either they cost ~1 us.
     gen = _random_filter_generator(stats.scan_count) if cfg.filtering.random_filter else None
-    with record_function("stage_pre"):
+    with graph.stage("stage_pre"):
         scan = preprocess(raw_scan, state.voxel_leaf, cfg, generator=gen, open_space=state.open_space)
     num_points = scan.count()
 
@@ -358,23 +360,23 @@ def step(
         open_space = state.open_space
         xy_cross_section = torch.full_like(state.voxel_leaf, -1.0)
 
-    with record_function("stage_prior"):
+    with graph.stage("stage_prior"):
         sel = fusion.integrate_sensors(state.fuse, stamp, stamp, cfg.fusion, prev_stamp=state.previous_stamp)
 
     # -- scan-to-scan ------------------------------------------------------
-    with record_function("stage_s2s"):
+    with graph.stage("stage_s2s"):
         odo = odometry.update(state.odom, scan, prior=sel.prior, cfg=cfg.odometry, flat_ground=flat)
 
     # -- scan-to-submap ----------------------------------------------------
     loc0 = localization.motion_update(state.loc, odo.state.incremental)
     fixed = localization.transform_points_to_fixed_frame(loc0, scan)
     mp_impl = mapper_fabric(cfg.mapper)
-    with record_function("stage_ann"):
+    with graph.stage("stage_ann"):
         neighbors, ann_d2 = mp_impl.approx_nearest_neighbors(
             state.map, fixed, return_d2=True, radius=cfg.mapper.ann_search_radius
         )
     neighbors_sensor = localization.transform_points_to_sensor_frame(loc0, neighbors)
-    with record_function("stage_s2m"):
+    with graph.stage("stage_s2m"):
         meas = localization.measurement_update(
             loc0, scan, neighbors_sensor, cfg=cfg.localization, flat_ground=flat
         )
@@ -430,7 +432,7 @@ def step(
     if cfg.mapper.keyframe_at_map_resolution:
         new_map = state.map
         if bool(want_keyframe.any()):
-            with record_function("stage_kf"):
+            with graph.stage("stage_kf"):
                 kf = raw_scan
                 if cfg.filtering.body_filter:
                     kf = filters.crop_box(kf, cfg.filtering.box_min, cfg.filtering.box_max, negative=True)
@@ -443,7 +445,7 @@ def step(
     elif cfg.b_add_keyframes_enabled:
         # Novelty distances come from the ANN pass at the predicted pose,
         # off from the final pose by the measurement correction (~cm).
-        with record_function("stage_kf"):
+        with graph.stage("stage_kf"):
             new_map = mp_impl.insert_keyframe(
                 state.map, scan.transform(pose), cfg.mapper, nearest_d2=ann_d2, enabled=want_keyframe
             )
@@ -462,7 +464,7 @@ def step(
             torch.mean(vb.rot, dim=-1) < cfg.mapper.rotational_velocity_threshold
         )
         want_refresh = moved_msw & slow & (new_map.num_keyframes > 0)
-        with record_function("stage_msw"):
+        with graph.stage("stage_msw"):
             new_map = mp_impl.refresh_msw(new_map, pos, cfg.mapper, enabled=want_refresh)
     else:
         want_refresh = torch.zeros_like(want_keyframe)
@@ -558,7 +560,8 @@ class CompiledStep:
     def __init__(self, cfg: LocusConfig, device: torch.device):
         self.device = device
         self.graph = graph.CapturedStep(
-            lambda state, raw, stamp, seq: step(state, raw, stamp, cfg, seq=seq), "pipeline.step"
+            lambda state, raw, stamp, seq: step(state, raw, stamp, cfg, seq=seq), "pipeline.step",
+            stamps=cfg.b_enable_computation_time_profiling,
         )
 
     def __call__(self, state: LocusState, raw_scan: PointCloud, stamp, seq=None):

@@ -106,7 +106,8 @@ def make_replay_step(cfg: LocusConfig, device=None):
     if dev.type != "cuda":
         return functools.partial(replay_step, cfg=cfg)
     pipeline.check_capturable(cfg)
-    captured = CapturedStep(functools.partial(replay_step, cfg=cfg), "runner.replay_step")
+    captured = CapturedStep(functools.partial(replay_step, cfg=cfg), "runner.replay_step",
+                            stamps=cfg.b_enable_computation_time_profiling)
 
     def rstep(state, *inputs):
         pipeline.check_single(state)

@@ -34,8 +34,9 @@ one CUDA graph a scan) on the same scans from the same state, in the same
 call: wall ms a scan untraced and traced, device busy ms and idle share,
 graph launches, kernels on the device and kernel launches from the host,
 and host synchronisations a scan (the "captured" record, traced as chip_smoke.py's
-`compiled` phase traces it; per-stage rows need the eager step, whose
-stage scopes a replay does not run).
+`compiled` phase traces it), and from the stamps the graph holds
+(`ops.graph.replay_records`) each stage's median and p95 device ms over
+the untraced replays, with the graph's own and the gap between replays.
 
 With --robots B > 1 it profiles the batched step instead: B robots, each
 on its own sequence (chip_smoke.robot_sequences: steps 0.30, 0.35, ...,
@@ -147,23 +148,55 @@ def captured_profile(torch, runner, cfg, inputs, state0, first, n):
     from _torch_tool import copy_state
     from chip_smoke import trace_steps
 
+    from locus_tpu_torch.ops import graph
+
     rstep = runner.make_replay_step(cfg)
     state = copy_state(state0)
     for i in range(first):
         state, _ = rstep(state, *inputs[i])
     start = copy_state(state)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     st = copy_state(start)
+    torch.cuda.synchronize()
+    graph.drop_replays()
+    t0 = time.perf_counter()
     for i in range(first, first + n):
         st, _ = rstep(st, *inputs[i])
     torch.cuda.synchronize()
     untraced_ms = (time.perf_counter() - t0) * 1e3 / n
+    stamps = replay_stamps(graph.replay_records(), graph.clock_offset(st.voxel_leaf.device))
     traced = trace_steps(torch, rstep, copy_state(start), inputs[first:first + n])
     return traced | {
         "setup_seconds": rstep.graph.setup_seconds,
         "untraced_wall_ms_per_scan": untraced_ms,
         "device_idle_share_untraced": 1.0 - traced["device_busy_ms_per_scan"] / untraced_ms,
+        "stamps": stamps,
+    }
+
+
+def replay_stamps(records, offset_now):
+    """Median and p95 device ms of each stage, of the graph (tail - head)
+    and of the gap to the next replay's head, from the captured step's
+    stamps (b_enable_computation_time_profiling off: none); the clock
+    offset at capture and now (`offset_now`, (offset, bracket) ns)."""
+    import numpy as np
+
+    if not records:
+        return None
+    (rec,) = records
+    dev = rec["device_ns"]
+    head, tail = dev[:, rec["head_slot"]], dev[:, rec["tail_slot"]]
+
+    def stats(ns):
+        ms = np.asarray(ns) / 1e6
+        return {"median_ms": float(np.median(ms)), "p95_ms": float(np.percentile(ms, 95))} if ms.size else None
+
+    return {
+        "replays": rec["replays"],
+        "stages": {name: stats(dev[:, b] - dev[:, a]) for name, (a, b) in zip(rec["stages"], rec["stage_slots"])},
+        "graph": stats(tail - head),
+        "gap": stats(head[1:] - tail[:-1]),
+        "offset_ns_at_capture": [rec["offset_ns"], rec["bracket_ns"]],
+        "offset_ns_now": list(offset_now),
     }
 
 
