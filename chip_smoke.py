@@ -16,7 +16,9 @@ Phases, each printing one JSON line:
                versions (`no_kernels()`), on the card
  4. kernels    each kernel at the shapes the main paths give it (inputs
                from the reference runs' states; B5 on B1's inputs, B6 on
-               B4's), against its plain version on the same inputs, timed
+               B4's; B7 on the step's two GICP calls, scan-to-scan and
+               scan-to-submap, one trip and the whole registration bit
+               for bit), against its plain version on the same inputs, timed
                with CUDA events beside the plain version, a one-call
                PyTorch yardstick where one exists, and the bound from this
                run's visited pairs and the launch floor of the grid and
@@ -198,6 +200,11 @@ BATCHED_LIMIT_M = 1e-3  # each robot of the batched replay against its single re
 # the kernels each replay launches: B1, B2 (scan, map); B4, B3 (scan, map)
 SINGLE_PATH = ("moments_visits", "nn_visits_scan", "nn_visits_map")
 BATCHED_PATH = ("moments_visits_batched", "nn_visits_batched_scan", "nn_visits_batched_map")
+# B7's launches (a GICP trip, single or batched) and the CUDA trips that
+# ran its plain version (covariances other than the normals' disks)
+GICP_ROWS = ("gicp_trip", "gicp_plain_trips")
+# B7's timed trips: convergence never reached, so each does a whole trip
+GICP_NEVER = {"tf_epsilon": 1e-30, "rotation_epsilon": 1e-30, "final_correspondence_relookup": False}
 # the other single-card paths (phase 8) and the kernels each must launch:
 # B2 always, B1 except on features (kNN normals, no radius moments)
 PATHS = {
@@ -855,7 +862,8 @@ def run_husky(torch, np, cfg, dev, data, alive_by=HUSKY_ALIVE_BY, ab_scans=REF_S
 def husky_kernel_inputs(torch, cfg, ref, dev):
     """The merged cloud of the scan after the reference run, all lidars
     alive, cropped and voxelised at the reference state's leaf: the
-    kernels' inputs on the husky path."""
+    kernels' inputs on the husky path; with the reference state and the
+    merged cloud (B7's inputs come from it)."""
     from locus_tpu_torch import merger
     from locus_tpu_torch.core.cloud import PointCloud
 
@@ -864,7 +872,7 @@ def husky_kernel_inputs(torch, cfg, ref, dev):
     clouds = [PointCloud.from_points(scan["clouds"][k], capacity=slot, device=dev) for k in range(len(lidars))]
     alive = torch.ones(len(lidars), dtype=torch.bool, device=dev)
     merged = merger.merge(clouds, list(lidars.values()), alive, cfg.merger, capacity=cfg.raw_scan_capacity)
-    return cloud_for_checks(cfg, merged, state.voxel_leaf), state
+    return cloud_for_checks(cfg, merged, state.voxel_leaf), state, merged
 
 
 def husky_problems(record):
@@ -1305,13 +1313,16 @@ def compiled_problems(record):
     return problems
 
 
-def device_time_ms(torch, fn, reps=20, warmup=3):
+def device_time_ms(torch, fn, reps=20, warmup=3, prepare=None):
     """Median device time of fn() in ms: CUDA events around each call,
-    queued behind a sleep kernel so host enqueue time is not measured."""
+    queued behind a sleep kernel so host enqueue time is not measured;
+    `prepare()`, if given, runs before each call, outside the events."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
+        if prepare is not None:
+            prepare()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(2_000_000)
         start.record()
@@ -1500,15 +1511,21 @@ def check_moments(torch, tmom, build, query, radius, suffix=""):
     return all(oks), results
 
 
-def scan_for_checks(torch, cfg, seqs, i, leaf, dev):
-    """Scan i of each sequence cropped and voxelised at `leaf`, as the step
-    would feed the kernels: one cloud, or a batch of them."""
+def raw_for_checks(torch, cfg, seqs, i, dev):
+    """Scan i of each sequence as the step receives it: one raw cloud, or
+    a batch of them."""
     from locus_tpu_torch import runner
 
     args = [runner.scan_inputs(s, i, cfg, dev) for s in seqs]
     xyz = torch.stack([a[0] for a in args]).squeeze(0)
     mask = torch.stack([a[1] for a in args]).squeeze(0)
-    return cloud_for_checks(cfg, runner.raw_cloud(xyz, mask), leaf)
+    return runner.raw_cloud(xyz, mask)
+
+
+def scan_for_checks(torch, cfg, seqs, i, leaf, dev):
+    """Scan i of each sequence cropped and voxelised at `leaf`, as the step
+    would feed the kernels: one cloud, or a batch of them."""
+    return cloud_for_checks(cfg, raw_for_checks(torch, cfg, seqs, i, dev), leaf)
 
 
 def cloud_for_checks(cfg, raw, leaf):
@@ -1520,17 +1537,158 @@ def cloud_for_checks(cfg, raw, leaf):
     return voxel.voxel_downsample(pc, leaf, capacity=cfg.scan_capacity, with_attributes=False)
 
 
-def kernel_checks(torch, tnn, tmom, build, cfg, pc, state, suffix):
+def gicp_cases(torch, cfg, raw, state, suffix):
+    """The step's two GICP calls on the reference run's state, one robot's
+    or a batch's: (row name, source, target, registration config) for
+    scan-to-scan (the preprocessed sweep `raw` against the last one, the
+    prior left out) and scan-to-submap (against its map neighbours in the
+    sensor frame, found as `pipeline.step` finds them)."""
+    from locus_tpu_torch import localization, pipeline
+    from locus_tpu_torch.mapping.registry import mapper_fabric
+
+    scan = pipeline.preprocess(raw, state.voxel_leaf, cfg, open_space=state.open_space)
+    fixed = localization.transform_points_to_fixed_frame(state.loc, scan)
+    neighbors = mapper_fabric(cfg.mapper).approx_nearest_neighbors(
+        state.map, fixed, radius=cfg.mapper.ann_search_radius)
+    submap = localization.transform_points_to_sensor_frame(state.loc, neighbors)
+    return ((f"gicp_trip{suffix}", scan, state.odom.reference, cfg.odometry),
+            (f"gicp_trip{suffix}_submap", scan, submap, cfg.localization.registration))
+
+
+def check_gicp(torch, build, name, source, target, rcfg, counter):
+    """Kernel B7 against its plain version (`dispatch.no_kernels()`) on one
+    GICP call of the step: one trip and the whole registration, every
+    output bit for bit. Times: `ms` B7 alone, each launch a first trip on
+    a fresh carry; `trip_ms` / `plain_trip_ms` a whole trip (the query
+    transform, the 1-NN and B7, or the plain trip with the 1-NN's plain
+    version) in a CUDA graph, 2 trips less 1, recorded in masked mode;
+    `plain_ms` B7's plain version, the plain trip less its query
+    transform and 1-NN in a graph. `counter` names the row's launch
+    counts in the `kernels` line."""
+    import contextlib
+    import dataclasses
+
+    from locus_tpu_torch.geometry import se3
+    from locus_tpu_torch.ops import dispatch, graph
+    from locus_tpu_torch.ops.kernels import gicp as tgicp, restore_launches, save_launches
+    from locus_tpu_torch.ops.kernels.nn import (SCAN_BT, build_nn_target, chunk_boxes, nearest_bounded_pre,
+                                                nearest_bounded_raw)
+    from locus_tpu_torch.registration.gicp import gicp_register
+
+    saved = save_launches()
+    dev, lead, n = source.xyz.device, source.mask.shape[:-1], source.capacity
+    rep = dataclasses.replace
+
+    def mode(kernels):
+        return contextlib.nullcontext() if kernels else dispatch.no_kernels()
+
+    mismatches, results = {}, {}
+    for what, c in (("trip", rep(rcfg, iterations=1, final_correspondence_relookup=False)), ("registration", rcfg)):
+        fused = gicp_register(source, target, None, c)
+        with mode(False):
+            plain = gicp_register(source, target, None, c)
+        mismatches[what] = [f for f in fused._fields if not torch.equal(getattr(fused, f), getattr(plain, f))]
+        results[what] = (fused, plain)
+    fused, plain = results["registration"]
+    ok = not any(mismatches.values())
+
+    # B7 alone: the first trip's operands, the carry reset before each launch
+    t_aug = build_nn_target(target.xyz, bt=SCAN_BT)
+    c_min, c_max = chunk_boxes(target.xyz, target.mask, t_aug.shape[-2], bt=SCAN_BT)
+    src0 = torch.where(source.mask[..., None], se3.transform_points(se3.identity(dev), source.xyz), source.xyz)
+    _, idx = nearest_bounded_raw(src0, t_aug, c_min, c_max, float(rcfg.corr_dist), bt=SCAN_BT)
+    carry = (se3.identity(dev).expand(lead + (4, 4)).contiguous(), torch.zeros(lead, dtype=torch.int32, device=dev),
+             torch.full(lead, float("inf"), device=dev), torch.zeros(lead, device=dev),
+             torch.zeros(lead, dtype=torch.int32, device=dev), torch.zeros(lead + (n,), dtype=torch.int64, device=dev),
+             torch.zeros(lead + (n,), device=dev), torch.ones((), dtype=torch.bool, device=dev))
+    fresh = tuple(x.clone() for x in carry)
+    clouds = tuple(tuple(x.contiguous() for x in (c.xyz, c.normals, c.mask)) for c in (source, target))
+
+    def restart():
+        for x, y in zip(carry, fresh):
+            x.copy_(y)
+
+    ms = device_time_ms(torch, lambda: tgicp.gicp_trip(src0, idx, *clouds, carry, rcfg), prepare=restart)
+
+    def graph_ms(fn, kernels):
+        """Median device time of a CUDA graph of fn(), recorded in masked
+        mode after one call on the capture stream."""
+        stream, cuda_graph = torch.cuda.Stream(dev), torch.cuda.CUDAGraph()
+        with mode(kernels), graph.masked():
+            with torch.cuda.stream(stream):
+                fn()
+            torch.cuda.synchronize(dev)
+            with torch.cuda.graph(cuda_graph, stream=stream):
+                fn()
+        return device_time_ms(torch, cuda_graph.replay)
+
+    def trips(k):
+        return lambda: gicp_register(source, target, None, rep(rcfg, iterations=k, **GICP_NEVER))
+
+    def query_and_nn():   # the plain trip's query transform and 1-NN (`nearest_fn`)
+        p = se3.transform_points(carry[0], src0)
+        d2, j = nearest_bounded_pre(p, t_aug, target.xyz, c_min, c_max, float(rcfg.corr_dist), bt=SCAN_BT)
+        return torch.where(torch.isfinite(d2), d2, 1e12), j
+
+    trip_ms = graph_ms(trips(2), True) - graph_ms(trips(1), True)
+    plain_trip_ms = graph_ms(trips(2), False) - graph_ms(trips(1), False)
+    plain_ms = plain_trip_ms - graph_ms(query_and_nn, False)
+    grid, threads, _ = tgicp.launch_grid(lead.numel())
+    # per point: ~92 operations for its pair, weight and disk inverse, ~117
+    # an inner step (the 27 terms and their sums); 78 bytes read and
+    # written (the point, its normal, mask and 1-NN index, the pair's
+    # target point, normal and mask; the pair and distance out)
+    b, by = bound_ms(source.mask.numel() * (92 + 117 * rcfg.inner_iterations), source.mask.numel() * 78)
+    restore_launches(saved)   # comparison launches are not main-path launches
+    return ok, {
+        "name": name, "route": "cuda", "source": "locus_tpu_torch/csrc/gicp.cu",
+        "replaces": "none: the JAX trip is XLA-fused (locus_tpu/registration/gicp.py, the lax.while_loop body)",
+        "batch": lead.numel(), "grid": list(grid), "threads": threads, "points": n,
+        "valid_points": source.mask.sum(-1).tolist(), "targets": target.capacity,
+        "valid_targets": target.mask.sum(-1).tolist(), "inner_iterations": rcfg.inner_iterations,
+        "iterations": fused.iterations.tolist(), "mismatches": mismatches,
+        "max_abs_err": float((fused.transform - plain.transform).abs().max()),
+        "tolerance": "every output of one trip and of the whole registration bit for bit",
+        "ms": ms, "plain_ms": plain_ms, "trip_ms": trip_ms, "plain_trip_ms": plain_trip_ms,
+        "bound_ms": b, "bound_by": by, "library_ms": None, "floor_ms": floor_ms(torch, build, grid, threads),
+        "counter": counter,
+    }
+
+
+def kernel_checks(torch, tnn, tmom, build, cfg, pc, state, suffix, raw=None):
     """B1/B5 and B2 (scan, map) on one robot's inputs, or B4/B6, B3 (scan,
     map) and B3 map at B = 16 on a batch's, all from the reference run's
-    state."""
+    state; given the raw sweep, B7 on the step's two GICP calls."""
     radius = cfg.filtering.normals_radius_scale * state.voxel_leaf
     ok_m, results = check_moments(torch, tmom, build, pc.xyz, radius, suffix if pc.xyz.dim() == 2 else "")
     oks = [ok_m]
     for case in nn_cases(torch, tnn, cfg, pc, state, suffix):
         ok, res = check_nn(torch, tnn, build, *case)
         oks.append(ok), results.append(res)
+    for name, source, target, rcfg in gicp_cases(torch, cfg, raw, state, suffix) if raw is not None else ():
+        ok, res = check_gicp(torch, build, name, source, target, rcfg, f"gicp_trip{suffix}")
+        oks.append(ok), results.append(res)
     return all(oks), results
+
+
+def gicp_problems(record):
+    """B7 runs every disk-path trip: each phase whose GICP keeps the
+    normals' disks launches it and runs no plain trip on the card; the
+    features phases (adaptive covariances) run the plain trip and no B7.
+    The ndt phases run no GICP (not checked)."""
+    problems = []
+    phases = (("pipeline", "batched") + tuple(PATHS) + ("live", "slam", "husky")
+              + tuple(f"batched_{p}" for p in BATCHED_PATHS) + ("sharded", "sharded_batched", "sharded_live"))
+    for phase in phases:
+        runs = record[phase]["launches"]
+        for launches in runs if isinstance(runs, list) else [runs]:
+            b7, plain = launches["gicp_trip"], launches["gicp_plain_trips"]
+            path = phase.removeprefix("batched_")
+            if path == "features" and b7:
+                problems.append(f"{phase}: B7 launched on the adaptive-covariance path: {b7}")
+            elif path not in ("features", "ndt") and (b7 <= 0 or plain):
+                problems.append(f"{phase}: GICP trips on the disk path: B7 {b7}, plain {plain}")
+    return problems
 
 
 def run_path(torch, np, runner, cfg, seq, ref_poses, name, dev):
@@ -1754,10 +1912,13 @@ def main() -> int:
         emit(record["reference"])
 
         # 4. kernels at the main paths' shapes, inputs from the reference states
-        pc = scan_for_checks(torch, cfg, [seq], REF_SCANS, ref_state.voxel_leaf, dev)
-        ok_single, results = kernel_checks(torch, tnn, tmom, build, cfg, pc, ref_state, "")
-        pcb = scan_for_checks(torch, cfg, robot_seqs, REF_SCANS, ref_states.voxel_leaf, dev)
-        ok_batched, batched_results = kernel_checks(torch, tnn, tmom, build, cfg, pcb, ref_states, "_batched")
+        raw = raw_for_checks(torch, cfg, [seq], REF_SCANS, dev)
+        pc = cloud_for_checks(cfg, raw, ref_state.voxel_leaf)
+        ok_single, results = kernel_checks(torch, tnn, tmom, build, cfg, pc, ref_state, "", raw=raw)
+        rawb = raw_for_checks(torch, cfg, robot_seqs, REF_SCANS, dev)
+        pcb = cloud_for_checks(cfg, rawb, ref_states.voxel_leaf)
+        ok_batched, batched_results = kernel_checks(torch, tnn, tmom, build, cfg, pcb, ref_states, "_batched",
+                                                    raw=rawb)
         results += batched_results
         # B2 map on the voxel-hash operand: a slot is a hash of its voxel,
         # so every chunk spans the window and a tile visits every chunk
@@ -1938,8 +2099,8 @@ def main() -> int:
         # 11. husky: three merged lidars from a bag through the kernels
         hcfg = cfg_mod.load_yaml(str(ROOT / "configs" / "husky.yaml"))
         record["husky"], _, ref = run_husky(torch, np, hcfg, dev, husky_data(np, workdir))
-        pch, hstate = husky_kernel_inputs(torch, hcfg, ref, dev)
-        ok_husky, husky_rows = kernel_checks(torch, tnn, tmom, build, hcfg, pch, hstate, HUSKY_SUFFIX)
+        pch, hstate, hraw = husky_kernel_inputs(torch, hcfg, ref, dev)
+        ok_husky, husky_rows = kernel_checks(torch, tnn, tmom, build, hcfg, pch, hstate, HUSKY_SUFFIX, raw=hraw)
         record["husky"]["kernel_checks"] = husky_rows
         emit(record["husky"])
         problems = husky_problems(record["husky"])
@@ -1975,7 +2136,7 @@ def main() -> int:
         finally:
             shutil.rmtree(workdir / RANK_INPUTS, ignore_errors=True)
         problems = (sharded_problems(record["sharded"], cap) + sharded_batched_problems(record["sharded_batched"], cap)
-                    + sharded_live_problems(record["sharded_live"]))
+                    + sharded_live_problems(record["sharded_live"]) + gicp_problems(record))
         if problems:
             raise RuntimeError("; ".join(problems))
 
@@ -2006,26 +2167,35 @@ def main() -> int:
     counts |= {k: sum(record[p]["launches"][k] for p in batched) for k in BATCHED_PATH}
     counts["nn_visits_batched_map"] -= record["batched_voxel_hash"]["launches"]["nn_visits_batched_map"]
     counts[BATCHED_VOXEL_HASH_MAP] = record["batched_voxel_hash"]["launches"]["nn_visits_batched_map"]
+    # B7's trips and the plain trips on the card: the single paths, the
+    # batched ones (`_batched`) and husky's (`_husky`), the sharded ranks
+    # below; both stages on one row
+    counts |= {k: sum(record[p]["launches"][k] for p in single) for k in GICP_ROWS}
+    counts |= {f"{k}_batched": sum(record[p]["launches"][k] for p in batched) for k in GICP_ROWS}
     # the husky path's launches on its own rows (B1, B2 scan and map)
     husky = record["husky"]["launches"]
     counts |= {f"moments_visits{HUSKY_SUFFIX}": husky["moments_visits"],
                f"nn_visits{HUSKY_SUFFIX}_scan": husky["nn_visits_scan"],
                f"nn_visits{HUSKY_SUFFIX}_map": husky["nn_visits_map"]}
+    counts |= {f"{k}{HUSKY_SUFFIX}": husky[k] for k in GICP_ROWS}
     # the sharded phases, summed over their ranks: B1 and B2 scan on the
     # single rows, B3 scan and B4 on the batched rows, the map 1-NN on the
     # `_shard` rows (one shard's operand)
-    for phase, rows, shard_row in (("sharded", SINGLE_PATH, "nn_visits_map"),
-                                   ("sharded_live", SINGLE_PATH, "nn_visits_map"),
-                                   ("sharded_batched", BATCHED_PATH, "nn_visits_batched_map")):
+    for phase, rows, shard_row, suffix in (("sharded", SINGLE_PATH, "nn_visits_map", ""),
+                                           ("sharded_live", SINGLE_PATH, "nn_visits_map", ""),
+                                           ("sharded_batched", BATCHED_PATH, "nn_visits_batched_map", "_batched")):
         for launches in record[phase]["launches"]:
             for k in rows:
                 key = k + SHARD_SUFFIX if k == shard_row else k
                 counts[key] = counts.get(key, 0) + launches[k]
+            for k in GICP_ROWS:
+                counts[k + suffix] += launches[k]
     summary = [
         {k: v for k, v in r.items() if k in (
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "floor_ms")}
-        | {"launches": counts.get(r["name"], 0)}
+            "bound_ms", "bound_by", "library_ms", "floor_ms", "trip_ms", "plain_trip_ms")}
+        | {"launches": counts.get(r.get("counter", r["name"]), 0)}
+        | ({"plain_trips": counts[r["counter"].replace("gicp_trip", "gicp_plain_trips")]} if "counter" in r else {})
         for r in record["kernels"]["checks"] + record["husky"]["kernel_checks"]
     ]
     out = ROOT / "chiprun_out"

@@ -96,10 +96,20 @@ def gate(pred: torch.Tensor, body, trips: torch.Tensor) -> bool:
 
 def assign(buf: torch.Tensor, new: torch.Tensor) -> None:
     """Write `new` into `buf` in place: how a gated body returns a result."""
+    pred = predicate()
+    if pred is not None:
+        new = torch.where(pred, new, buf)
+    buf.copy_(new)
+
+
+def predicate():
+    """In masked mode inside gates, the 0-d bool tensor under which a
+    gated body's writes take effect (what `assign` applies); else None. A
+    kernel that writes its results in place itself takes it."""
     mode = _mode.get()
     if isinstance(mode, _Masked) and mode.preds:
-        new = torch.where(functools.reduce(operator.and_, mode.preds), new, buf)
-    buf.copy_(new)
+        return functools.reduce(operator.and_, mode.preds)
+    return None
 
 
 # Constants made from host data, once per (values, dtype, device): a step

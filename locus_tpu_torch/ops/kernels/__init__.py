@@ -12,9 +12,9 @@ launches, as counted at capture, to the counters first."""
 
 
 def _modules():
-    from locus_tpu_torch.ops.kernels import moments as tmom, nn as tnn
+    from locus_tpu_torch.ops.kernels import gicp as tgicp, moments as tmom, nn as tnn
 
-    return tmom, tnn
+    return tmom, tnn, tgicp
 
 
 def reset_launches() -> None:
@@ -22,19 +22,22 @@ def reset_launches() -> None:
     captured steps' replays too."""
     from locus_tpu_torch.ops import graph
 
-    tmom, tnn = _modules()
+    tmom, tnn, tgicp = _modules()
     graph.drop_launches()
     for counts in (tnn.launches, tnn.batched_launches):
         counts.update({bt: 0 for bt in counts})
     tnn.other_launches.clear()
     tmom.launches = tmom.batched_launches = tmom.dense_launches = tmom.dense_batched_launches = 0
+    tgicp.trip_launches = tgicp.plain_trips = 0
 
 
 def raw_launches() -> dict:
     """The wrappers' counters by row name, without the captured steps'
     replays; B2/B3 at another chunk size than the pipeline's two (a
-    sweep's) as `nn_visits[_batched]_bt<size>`."""
-    tmom, tnn = _modules()
+    sweep's) as `nn_visits[_batched]_bt<size>`; B7's trips as
+    `gicp_trip` and the CUDA trips that ran its plain version as
+    `gicp_plain_trips`."""
+    tmom, tnn, tgicp = _modules()
     return {
         "moments_visits": tmom.launches,
         "nn_visits_scan": tnn.launches[tnn.SCAN_BT],
@@ -44,17 +47,21 @@ def raw_launches() -> dict:
         "moments_visits_batched": tmom.batched_launches,
         "moments_dense": tmom.dense_launches,
         "moments_dense_batched": tmom.dense_batched_launches,
+        "gicp_trip": tgicp.trip_launches,
+        "gicp_plain_trips": tgicp.plain_trips,
     } | {f"nn_visits{'_batched' if batched else ''}_bt{bt}": n for (batched, bt), n in tnn.other_launches.items()}
 
 
 def add_launches(rows: dict) -> None:
     """Add launches by row name to the wrappers' counters."""
-    tmom, tnn = _modules()
-    fields = {"moments_visits": "launches", "moments_visits_batched": "batched_launches",
-              "moments_dense": "dense_launches", "moments_dense_batched": "dense_batched_launches"}
+    tmom, tnn, tgicp = _modules()
+    fields = {"moments_visits": (tmom, "launches"), "moments_visits_batched": (tmom, "batched_launches"),
+              "moments_dense": (tmom, "dense_launches"), "moments_dense_batched": (tmom, "dense_batched_launches"),
+              "gicp_trip": (tgicp, "trip_launches"), "gicp_plain_trips": (tgicp, "plain_trips")}
     for name, n in rows.items():
         if name in fields:
-            setattr(tmom, fields[name], getattr(tmom, fields[name]) + n)
+            module, field = fields[name]
+            setattr(module, field, getattr(module, field) + n)
             continue
         counts = tnn.batched_launches if name.startswith("nn_visits_batched") else tnn.launches
         if name.endswith("_scan") or name.endswith("_map"):
@@ -67,18 +74,20 @@ def add_launches(rows: dict) -> None:
 
 def save_launches():
     """A copy of every counter, for `restore_launches`."""
-    tmom, tnn = _modules()
+    tmom, tnn, tgicp = _modules()
     return (dict(tnn.launches), dict(tnn.batched_launches), dict(tnn.other_launches),
-            (tmom.launches, tmom.batched_launches, tmom.dense_launches, tmom.dense_batched_launches))
+            (tmom.launches, tmom.batched_launches, tmom.dense_launches, tmom.dense_batched_launches),
+            (tgicp.trip_launches, tgicp.plain_trips))
 
 
 def restore_launches(saved) -> None:
     """Set every counter back to a `save_launches` copy."""
-    tmom, tnn = _modules()
+    tmom, tnn, tgicp = _modules()
     for counts, old in zip((tnn.launches, tnn.batched_launches, tnn.other_launches), saved[:3]):
         counts.clear()
         counts.update(old)
     tmom.launches, tmom.batched_launches, tmom.dense_launches, tmom.dense_batched_launches = saved[3]
+    tgicp.trip_launches, tgicp.plain_trips = saved[4]
 
 
 def read_launches() -> dict:

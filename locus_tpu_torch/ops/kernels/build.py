@@ -19,12 +19,15 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("nn", "moments", "graph")  # the sources the pipeline runs (graph: the IF nodes of a captured step)
+KERNELS = ("nn", "moments", "graph", "gicp")  # the sources the pipeline runs (graph: the IF nodes of a captured step)
 FLOOR = "floor"              # the empty kernel that measurements time beside them
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# flags of one source besides NVCC_FLAGS: B7 rounds every product and sum
+# as PyTorch's separate kernels do, so nothing may contract into an FMA
+EXTRA_FLAGS = {"gicp": ("-fmad=false",)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 # ptxas resource report of each build made in this process
@@ -41,9 +44,13 @@ def _nvcc() -> str:
     return found
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def _lib_path(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -59,7 +66,7 @@ def build(names=KERNELS) -> dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         builds += 1
         started[name] = (proc, tmp, out, time.perf_counter())

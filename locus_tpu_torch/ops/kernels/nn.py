@@ -384,6 +384,18 @@ def nearest_bounded_pre(
     return d2, idx
 
 
+def nearest_bounded_raw(query, t_aug, c_min, c_max, radius=2.0, bt: int = BT):
+    """The 1-NN kernel's own outputs for `query` (..., N, 3): (score
+    (..., n_pad) f32, idx (..., n_pad) int32), each query's winner among
+    the targets of its tile's visited chunks (B3 with a leading batch
+    dimension, else B2). The GICP trip kernel (B7) takes them as they
+    are."""
+    t_min, t_max = tile_boxes(query)
+    cnt, ids = visit_lists(t_min, t_max, c_min, c_max, radius * radius)
+    run = nn_visits_batched if query.dim() == 3 else nn_visits
+    return run(cnt, ids, pack_query(query), t_aug, bt)
+
+
 def nearest_bounded_scores(query, t_aug, target, c_min, c_max, radius=2.0, bt: int = BT):
     """`nearest_bounded_pre` that also returns the kernel's score of each
     winner, |t|^2 - 2 q.t: (score, d2, idx). The winner is the lowest
@@ -391,10 +403,7 @@ def nearest_bounded_scores(query, t_aug, target, c_min, c_max, radius=2.0, bt: i
     score (ties to the lowest shard) give the winner of the whole map."""
     n, m = query.shape[-2], target.shape[-2]
     r2 = radius * radius
-    t_min, t_max = tile_boxes(query)
-    cnt, ids = visit_lists(t_min, t_max, c_min, c_max, r2)
-    run = nn_visits_batched if query.dim() == 3 else nn_visits
-    score, i = run(cnt, ids, pack_query(query), t_aug, bt)
+    score, i = nearest_bounded_raw(query, t_aug, c_min, c_max, radius, bt)
     idx = torch.clamp(i[..., :n].to(torch.int64), 0, m - 1)
     d2 = sq_norm3(query - take_rows(target, idx))
     return score[..., :n], torch.where(d2 <= r2, d2, float("inf")), idx

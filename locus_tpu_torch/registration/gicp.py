@@ -10,6 +10,11 @@ iteration the correspondences come from the radius-bounded 1-NN (kernel
 B2 at SCAN_BT), then `inner_iterations` Gauss-Newton steps on the SE(3)
 tangent with M and the pairs fixed.
 
+On the card, everything of a disk-mode trip after the 1-NN kernel is one
+launch of kernel B7 (`ops/kernels/gicp.py`, bit-equal to the plain trip
+below); the plain trip runs on the CPU, inside `dispatch.no_kernels()`,
+and for the covariances B7 does not take (3x3 matrices).
+
 Loop control: the JAX package runs the outer loop as a `lax.while_loop`
 on a device-side test and the final re-lookup under `lax.cond`. Here each
 of the cfg.iterations possible trips and the re-lookup is an
@@ -43,13 +48,15 @@ import torch
 from locus_tpu_torch.config import RegistrationConfig
 from locus_tpu_torch.core.cloud import PointCloud, take_rows
 from locus_tpu_torch.geometry import se3
-from locus_tpu_torch.ops import graph
+from locus_tpu_torch.ops import dispatch, graph
+from locus_tpu_torch.ops.kernels import gicp as trip_kernel
 from locus_tpu_torch.ops.normals import eigh_sym3x3, knn_covariance, smallest_eigenvector_sym3x3
 from locus_tpu_torch.ops.kernels.nn import (
     SCAN_BT,
     build_nn_target,
     chunk_boxes,
     nearest_bounded_pre,
+    nearest_bounded_raw,
 )
 from locus_tpu_torch.utils.linalg import chol_solve, sum_last, tree_sum
 
@@ -151,6 +158,12 @@ def _gauss_newton_step_comps(p_cur, q, M, w, lm_lambda):
     """Component-form weighted GN step for min sum_i w_i r^T M r with
     r = exp(xi) p - q and J = [I | -skew(p)]. The 21 unique entries of
     H = sum J^T M J and the 6 of g are column sums of one (N, 27) stack."""
+    return _gauss_newton_solve(_gauss_newton_sums(p_cur, q, M, w), lm_lambda)
+
+
+def _gauss_newton_sums(p_cur, q, M, w):
+    """The (..., 27) column sums of the step: M's 6 components, B = M
+    skew(p) (9), C = P^T M P (6), M r (3) and p x M r (3)."""
     px, py, pz = p_cur[..., 0], p_cur[..., 1], p_cur[..., 2]
     rx = px - q[..., 0]
     ry = py - q[..., 1]
@@ -183,13 +196,18 @@ def _gauss_newton_step_comps(p_cur, q, M, w, lm_lambda):
     gw1 = pz * mr0 - px * mr2
     gw2 = -py * mr0 + px * mr1
 
-    s = tree_sum(torch.stack(
+    return tree_sum(torch.stack(
         [m00, m01, m02, m11, m12, m22,
          b00, b01, b02, b10, b11, b12, b20, b21, b22,
          c00, c01, c02, c11, c12, c22,
          mr0, mr1, mr2, gw0, gw1, gw2],
         dim=-1,
     ))
+
+
+def _gauss_newton_solve(s, lm_lambda):
+    """The step dx from the 27 sums: H and g assembled, a trace ridge,
+    the float64 Cholesky solve of H dx = -g."""
     H_tt = s[..., graph.constant((0, 1, 2, 1, 3, 4, 2, 4, 5), torch.int64, s.device)].unflatten(-1, (3, 3))
     H_tw = -s[..., 6:15].unflatten(-1, (3, 3))
     H_ww = s[..., graph.constant((15, 16, 17, 16, 18, 19, 17, 19, 20), torch.int64, s.device)].unflatten(-1, (3, 3))
@@ -280,7 +298,22 @@ def gicp_register(
     d2_fin = torch.full(lead + (n_src,), float("inf"), device=dev)
     go = torch.full((), cfg.iterations > 0, dtype=torch.bool, device=dev)   # a member still iterates
 
+    # On the card a trip after its 1-NN is one launch of kernel B7 where it
+    # takes the covariances (the disks); `trip` below is its plain version.
+    on_card = source.xyz.is_cuda and dispatch.kernels_enabled()
+    fused = on_card and disk_path
+    if fused:
+        kernel_source = (src0, src0_normals.contiguous(), source.mask.contiguous())
+        kernel_target = tuple(x.contiguous() for x in (target.xyz, target.normals, target.mask))
+
+    def kernel_trip():
+        p = se3.transform_points(T, src0)
+        _, i = nearest_bounded_raw(p, t_aug, c_min, c_max, float(cfg.corr_dist), bt=SCAN_BT)
+        trip_kernel.gicp_trip(p, i, kernel_source, kernel_target, (T, it, delta, fitness, ncorr, j_fin, d2_fin, go), cfg)
+
     def trip():
+        if on_card:
+            trip_kernel.plain_trips += 1
         active = (it < cfg.iterations) & (delta >= 1.0)
         p = se3.transform_points(T, src0)
         d2, j = nearest_fn(p)
@@ -322,7 +355,7 @@ def gicp_register(
     # ends at the first false; captured: trips after convergence launch
     # nothing). `it` counts the trips that ran.
     for _ in range(cfg.iterations):
-        if not graph.gate(go, trip, trips=it):
+        if not graph.gate(go, kernel_trip if fused else trip, trips=it):
             break
 
     converged = delta < 1.0
