@@ -46,11 +46,15 @@ Phases, each printing one JSON line:
                the launches and graph launches from the host and the host
                syncs a scan
  7. batched    4 robots, 24 scans each, through runner.make_batched_replay
-               (one batched step per tick) with launch counts reset just
-               before and read just after; every robot also through
-               runner.make_scan_replay; ticks/s and robot-scans/s over the
-               last 16 ticks, per-robot ATE and difference from the single
-               replay, launches per tick
+               (one batched step per tick, captured: one CUDA graph a
+               tick) with launch counts reset just before and read just
+               after; every robot also through runner.make_scan_replay;
+               ticks/s and robot-scans/s over the last 16 ticks, per-robot
+               ATE and difference from the single replay (0.0 m), launches
+               per tick; the same ticks through the eager batched step in
+               this call (poses equal), and from a trace of the last 7
+               ticks of the captured step the graph launches, kernel
+               launches and syncs of the host a tick (1, 0, 0)
  8. ndt, features, voxel_hash
                48 scans of the other single-card paths (`path_config`;
                `path_sequence`: NDT on its source's world tunnel, the
@@ -1297,7 +1301,7 @@ def run_compiled(torch, np, runner, pipeline, cfg, seq, pipeline_rec, captured_p
         "launches_per_scan": {"captured": pipeline_rec["launches_per_scan"],
                               "eager": {k: v / n for k, v in launches.items()}},
         "launches_equal": pipeline_rec["launches"] == launches,
-        "capture_seconds": rstep.graph.setup_seconds,
+        "capture_seconds": rstep.setup_seconds,
         "traced": traced,
     }
 
@@ -1310,6 +1314,53 @@ def compiled_problems(record):
         problems.append(f"compiled: ATE captured {record['ate_m']['captured']} != eager {record['ate_m']['eager']}")
     if not record["launches_equal"]:
         problems.append(f"compiled: launches differ: {record['launches_per_scan']}")
+    return problems
+
+
+def run_batched_captured(torch, np, runner, pipeline, cfg, packed, init_poses, captured_poses, dev):
+    """Phase 7's ticks again through the eager batched step (the kernels
+    on), in this call: its poses against the captured replay's; then a
+    captured batched step from the eager run's state COMPILED_TRACE ticks
+    before the end, its later ticks traced. Returns the phase row."""
+    outs = []
+    ticks = packed["scan_xyz"].shape[0]
+    first = ticks - COMPILED_TRACE
+    inputs = [[packed[k][i] for k in runner.PACKED_KEYS] for i in range(ticks)]
+    state = pipeline.init_states(cfg, init_poses, device=dev)
+    t0 = time.perf_counter()
+    for i, args in enumerate(inputs):
+        if i == first:
+            start = state          # the eager step leaves its input state as it was
+        state, out = runner.replay_step(state, *args, cfg=cfg)
+        outs.append(out.pose)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    eager = torch.stack(outs).cpu().numpy().astype(np.float64)
+    # the capture takes the eager run's state there; the traced ticks go on
+    # from the graph's own (a state from outside is copied in, a tick is not)
+    rstep = runner.make_replay_step(cfg, name=runner.BATCHED_REPLAY_STEP)
+    state, _ = rstep(start, *inputs[first])
+    traced = trace_steps(torch, rstep, state, inputs[first + 1:])
+    return {
+        "phase": "batched_captured", "ticks": ticks, "eager_ms_per_tick": eager_s * 1e3 / ticks,
+        "max_pose_diff_captured_vs_eager": float(np.abs(captured_poses - eager).max()),
+        "capture_seconds": rstep.setup_seconds, "traced": traced,
+    }
+
+
+def batched_captured_problems(record, batched):
+    problems = []
+    if not batched["captured"]:
+        problems.append("batched: make_batched_replay did not run captured")
+    if record["max_pose_diff_captured_vs_eager"] != 0.0:
+        problems.append(f"batched: captured and eager poses differ by {record['max_pose_diff_captured_vs_eager']}")
+    if max(batched["max_translation_vs_single_m"]) != 0.0:
+        problems.append(f"batched: robots differ from their single replays by {batched['max_translation_vs_single_m']}")
+    t = record["traced"]
+    # the syncs traced: the fence after the ticks and the profiler's own
+    if (t["graph_launches_per_scan"], t["host_kernel_launches_per_scan"]) != (1.0, 0.0) or \
+            t["syncs_per_scan"] * t["traced_scans"] > 2:
+        problems.append(f"batched: a captured tick is not one graph launch and nothing else: {t}")
     return problems
 
 
@@ -2054,6 +2105,12 @@ def main() -> int:
             raise RuntimeError(f"batched launches per tick are not B4 = B3-at-BT = 1: {blaunches}")
         if any(blaunches[k] for k in SINGLE_PATH):
             raise RuntimeError(f"the batched replay launched a single-member kernel: {blaunches}")
+        record["batched_captured"] = run_batched_captured(torch, np, runner, pipeline, cfg, packed, init_poses,
+                                                          bposes, dev)
+        emit(record["batched_captured"])
+        problems = batched_captured_problems(record["batched_captured"], record["batched"])
+        if problems:
+            raise RuntimeError("; ".join(problems))
 
         # 8. the other single-card paths through the kernels; every path
         # runs, then any path's failure fails the script

@@ -29,6 +29,10 @@ stamp of the device's clock at its entry and at its exit. Each replay
 also stamps its head and tail on the device and its call on the host
 (`replay_records`).
 
+`count(name, value)` adds a 0-d integer tensor into a program counter of
+the enclosing stage, on the device, in every mode; a captured graph adds
+it at every replay. `read_counters` reads them (one host read each).
+
 The port imports no JAX: this module is the whole of what it needs.
 """
 from __future__ import annotations
@@ -49,6 +53,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 # None: eager; a _Masked: masked; a _Capture: capture
 _mode = contextvars.ContextVar("locus_torch_graph_mode", default=None)
+# the innermost open `stage`: the scope of a program counter
+_stage = contextvars.ContextVar("locus_torch_graph_stage", default=None)
 
 
 class _Masked:
@@ -319,13 +325,59 @@ def stage(name: str):
         if mode.inside:
             raise RuntimeError(f"the stage {name!r} is inside a gated body")
         stamps = mode.stamps
-    with record_function(name):
-        if stamps is None:
+    token = _stage.set(name)
+    try:
+        with record_function(name):
+            if stamps is None:
+                yield
+                return
+            entry = stamps.stamp()
             yield
-            return
-        entry = stamps.stamp()
-        yield
-        stamps.stages.append((name, entry, stamps.stamp()))
+            stamps.stages.append((name, entry, stamps.stamp()))
+    finally:
+        _stage.reset(token)
+
+
+# -- program counters -------------------------------------------------------
+
+# Sums the step keeps on the device, by ("<stage>/<name>", device): int64
+# 0-d tensors made at their first add (a captured step's warm-up), never
+# read on the step's path.
+_counters: dict = {}
+
+
+def count(name: str, value: torch.Tensor) -> None:
+    """Add the 0-d integer tensor `value` into the program counter `name`
+    of the enclosing `stage` ("<stage>/<name>"), on its device: no host
+    read. Inside a captured graph the add is one of its nodes, run at
+    every replay; a captured step's warm-up adds nothing. Not inside a
+    gated body, whose writes would count or not with the body."""
+    mode = _mode.get()
+    if (isinstance(mode, _Capture) and mode.inside) or (isinstance(mode, _Masked) and mode.preds):
+        raise RuntimeError(f"the counter {name!r} is inside a gated body")
+    scope = _stage.get()
+    key = (name if scope is None else f"{scope}/{name}", value.device)
+    buf = _counters.get(key)
+    if buf is None:
+        if capturing():
+            raise RuntimeError(f"the counter {key[0]!r} was first needed under capture")
+        buf = _counters[key] = torch.zeros((), dtype=torch.int64, device=value.device)
+    buf.add_(value)
+
+
+def read_counters() -> dict:
+    """Each program counter's sum since the last `drop_counters`, by name,
+    over every device (one host read a counter)."""
+    out: dict = {}
+    for (name, _), buf in _counters.items():
+        out[name] = out.get(name, 0) + int(buf)
+    return out
+
+
+def drop_counters() -> None:
+    """Set every program counter to 0."""
+    for buf in _counters.values():
+        buf.zero_()
 
 
 def _check_status(status: int, what: str) -> None:
@@ -509,7 +561,8 @@ class CapturedStep:
     eager step. Kernel launches inside the graph are counted at capture
     (the warm-up's and the capture's own do not count): every replay adds
     the launches outside any gate once, and each gated region's launches
-    times the trips it ran, held on the device until `fold_launches`.
+    times the trips it ran, held on the device until `fold_launches`. The
+    program counters (`count`) add at every replay, not in the warm-up.
 
     With `stamps` (LOCUS's `b_enable_computation_time_profiling`) the
     graph also stamps the device's clock at its head, at its tail and at
@@ -556,6 +609,7 @@ class CapturedStep:
         dev = next(x for x in _leaves(state) if x is not None).device
         _lib()
         counts = kernels.save_launches()
+        counters = {k: v.clone() for k, v in _counters.items()}
         self.state, self.inputs = _map(_fresh, state), _map(_fresh, inputs)
         self._state_leaves, self._input_leaves = _leaves(self.state), _leaves(self.inputs)
         t0 = time.perf_counter()
@@ -564,6 +618,8 @@ class CapturedStep:
         with torch.cuda.stream(stream), masked():
             self.fn(_map(_fresh, self.state), *self.inputs)
         torch.cuda.current_stream(dev).wait_stream(stream)
+        for k, v in _counters.items():      # the warm-up counts nothing
+            v.copy_(counters[k]) if k in counters else v.zero_()
         torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
 

@@ -37,7 +37,9 @@ Compiled: `make_step` (and `runner.make_replay_step`) is the counterpart
 of the JAX `make_step`, a jit of `step` with the state donated: on the
 card, one CUDA graph a scan (`ops.graph.CapturedStep`), with the GICP
 trips and re-lookups as IF nodes on device flags, for every
-configuration where `capturable` holds; on the CPU, `step` itself.
+configuration where `capturable` holds, one robot's state or B robots'
+stacked by `stack_states` (a batched gate holds while any member
+iterates); on the CPU, `step` itself.
 """
 from __future__ import annotations
 
@@ -534,7 +536,8 @@ def capturable(cfg: LocusConfig, mesh=None) -> bool:
     CUDA graph a scan on the card: GICP in both stages (any covariance
     mode, iteration counts and re-lookup), the ring map, radius or kNN
     normals without the LOAM features, no random filter, keyframes at the
-    scan's own resolution, any fusion mode, one robot and no mesh."""
+    scan's own resolution, any fusion mode, one robot or a batch of them
+    (`stack_states`), and no mesh."""
     return capture_blocker(cfg, mesh) is None
 
 
@@ -545,17 +548,11 @@ def check_capturable(cfg: LocusConfig, mesh=None) -> None:
         raise NotImplementedError(f"the captured step does not cover {blocker}; run the eager step")
 
 
-def check_single(state: LocusState) -> None:
-    """Raise NotImplementedError for a batched state: the captured step
-    advances one robot."""
-    if state.voxel_leaf.dim() != 0:
-        raise NotImplementedError("the captured step advances one robot, not a batched state")
-
-
 class CompiledStep:
     """`make_step`'s step on the card: `step` as one CUDA graph
     (`ops.graph.CapturedStep`), its static inputs the raw scan's four
-    tensors, the stamp and the sequence number."""
+    tensors, the stamp and the sequence number (batched, each with a
+    leading B)."""
 
     def __init__(self, cfg: LocusConfig, device: torch.device):
         self.device = device
@@ -565,7 +562,6 @@ class CompiledStep:
         )
 
     def __call__(self, state: LocusState, raw_scan: PointCloud, stamp, seq=None):
-        check_single(state)
         stamp = torch.as_tensor(stamp, dtype=torch.float32).to(self.device)
         seq = None if seq is None else torch.as_tensor(seq, dtype=torch.int32).to(self.device)
         return self.graph(state, raw_scan, stamp, seq)
@@ -580,8 +576,9 @@ def make_step(cfg: LocusConfig, device=None):
     GICP loops and the re-lookup gated on the device (`ops.graph`), for
     the configurations where `capturable(cfg)` holds; for any other it
     raises NotImplementedError naming the option, before any device call.
-    On the CPU it is the eager `step`, as the JAX jit runs the same program
-    there.
+    Its first call fixes the shapes: one robot's state, or B robots'
+    stacked by `stack_states` with batched inputs. On the CPU it is the
+    eager `step`, as the JAX jit runs the same program there.
 
     Donation: on the card the returned state and outputs are the graph's
     static buffers, overwritten by the next call; clone what you keep. A

@@ -33,6 +33,11 @@ and is selected per member. Each outer iteration launches the 1-NN kernel
 once for all members (B3; B2 on the single path). The Gauss-Newton sums
 are pairwise (`tree_sum`) and the small products written out
 (`se3.matmul`), so that a member rounds exactly as its single run does.
+The loop's trips are its slowest member's count: a batched call adds B
+times them and its members' own counts to the program counters
+`gicp.member_trips_run` and `gicp.member_trips_needed` of the enclosing
+stage (`ops.graph.count`); the difference is the trips of members that
+had stopped, the price of lockstep.
 
 The "recompute" and "adaptive" modes and explicit covariances batch the
 same way: each member's k-NN covariances come from the batched
@@ -353,10 +358,16 @@ def gicp_register(
     # JAX's lax.while_loop: at most cfg.iterations trips, each gated on the
     # flag the previous one left (eager: one host read a trip, and the loop
     # ends at the first false; captured: trips after convergence launch
-    # nothing). `it` counts the trips that ran.
+    # nothing). `it` counts the trips that ran; batched, the slowest
+    # member's count (`loops`, written after the loop) does.
+    loops = torch.zeros((), dtype=torch.int32, device=dev) if lead else it
     for _ in range(cfg.iterations):
-        if not graph.gate(go, kernel_trip if fused else trip, trips=it):
+        if not graph.gate(go, kernel_trip if fused else trip, trips=loops):
             break
+    if lead:
+        loops.copy_(it.amax())
+        graph.count("gicp.member_trips_run", loops * lead.numel())
+        graph.count("gicp.member_trips_needed", it.sum())
 
     converged = delta < 1.0
     # Exited on the iteration cap: the carried pairs may be stale, so

@@ -12,7 +12,7 @@ and the prepacked replays: `pack_sequence`, `stack_packed`,
 one batched step per tick). The JAX package runs those as one compiled
 `lax.scan`; here a host loop steps through the prepacked device tensors,
 replaying the captured step where `pipeline.capturable` holds (the
-single replays; the batched replay, the live step and the mesh run the
+single and the batched replays; the live step and the mesh run the
 eager step).
 
 `mesh=` (a `parallel.mesh.Mesh`) runs the replays and the live step as
@@ -36,6 +36,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from locus_tpu_torch import fusion, localization, pipeline
 from locus_tpu_torch.config import LocusConfig
@@ -87,17 +88,23 @@ def replay_step(state, scan_xyz, scan_mask, stamp, imu_s, imu_q, odom_s, odom_p,
     return pipeline.step(state._replace(fuse=fuse), raw_cloud(scan_xyz, scan_mask), stamp, cfg, seq=seq_id)
 
 
-def make_replay_step(cfg: LocusConfig, device=None):
+# the captured steps' names in their stamps (`ops.graph.replay_records`)
+REPLAY_STEP, BATCHED_REPLAY_STEP = "runner.replay_step", "runner.batched_replay_step"
+
+
+def make_replay_step(cfg: LocusConfig, device=None, name: str = REPLAY_STEP):
     """Sensor ingest + one pipeline step as one compiled function
     (counterpart of the JAX `make_replay_step`): rstep(state, scan_xyz,
     scan_mask, stamp, imu_s, imu_q, odom_s, odom_p, seq_id) -> (state,
     StepOutput), the arguments those of `replay_step` as device tensors
-    (`scan_inputs`).
+    (`scan_inputs`); one robot's state, or B robots' (`stack_states`)
+    with inputs stacked the same way (a tick of `make_batched_replay`).
 
     On the card (`device` None or CUDA): the push of the IMU and odometry
-    windows and the step, one CUDA graph a scan (`ops.graph.CapturedStep`;
-    the scan, its mask, the stamp, the windows and the sequence number
-    are its static inputs), where `pipeline.capturable(cfg)` holds, and
+    windows and the step, one CUDA graph a scan (`ops.graph.CapturedStep`
+    named `name`; the scan, its mask, the stamp, the windows and the
+    sequence number are its static inputs, and the first call fixes their
+    shapes), where `pipeline.capturable(cfg)` holds, and
     NotImplementedError naming the option elsewhere. The returned state
     and outputs are the graph's static buffers, overwritten by the next
     call (JAX's donation): clone what you keep. On the CPU: `replay_step`,
@@ -106,23 +113,15 @@ def make_replay_step(cfg: LocusConfig, device=None):
     if dev.type != "cuda":
         return functools.partial(replay_step, cfg=cfg)
     pipeline.check_capturable(cfg)
-    captured = CapturedStep(functools.partial(replay_step, cfg=cfg), "runner.replay_step",
-                            stamps=cfg.b_enable_computation_time_profiling)
-
-    def rstep(state, *inputs):
-        pipeline.check_single(state)
-        return captured(state, *inputs)
-
-    rstep.graph = captured
-    return rstep
+    return CapturedStep(functools.partial(replay_step, cfg=cfg), name, stamps=cfg.b_enable_computation_time_profiling)
 
 
-def _stepper(cfg: LocusConfig, dev: torch.device, mesh=None):
+def _stepper(cfg: LocusConfig, dev: torch.device, mesh=None, name: str = REPLAY_STEP):
     """(step function, captured): `make_replay_step`'s compiled step on the
     card where `pipeline.capturable(cfg, mesh)` holds, else the eager
     `replay_step`."""
     if dev.type == "cuda" and pipeline.capturable(cfg, mesh):
-        return make_replay_step(cfg, dev), True
+        return make_replay_step(cfg, dev, name), True
     return functools.partial(replay_step, cfg=cfg), False
 
 
@@ -426,6 +425,17 @@ def make_batched_replay(cfg: LocusConfig, mesh=None, use_pallas: Optional[bool] 
     runs radius normals), and each robot equals its own `make_scan_replay`
     bit for bit.
 
+    On the card, where `pipeline.capturable(cfg, mesh)` holds, every tick
+    is a replay of one CUDA graph (`make_replay_step` on the stacked
+    state, named `BATCHED_REPLAY_STEP`, captured at the first call and
+    kept for every later one): the GICP trips and re-lookups are IF nodes
+    on "some member still iterates", and no tick reads the device on the
+    host. Elsewhere (`use_pallas=False`, an uncapturable configuration,
+    the CPU, `mesh`) the eager step runs. The report says which
+    (`captured`); the returned state is then the graph's static state,
+    which the next call of this replay overwrites. Each call is one
+    `record_function` span, "runner.batched_replay".
+
     `use_pallas=False` runs the kernels' plain PyTorch versions
     (`dispatch.no_kernels()`, the ablation); None and True run the kernels
     on the card. The JAX `unroll` is a `lax.scan` notion with no
@@ -439,11 +449,18 @@ def make_batched_replay(cfg: LocusConfig, mesh=None, use_pallas: Optional[bool] 
     gets their poses; the loops run while any of those robots iterates,
     the same on every rank of the row."""
     _check_mesh(cfg, mesh)
+    steppers = {}   # by device: one captured graph for every call on the card
 
     def replay(states, packed, report: Optional[RateReport] = None, outputs: Optional[list] = None):
         _check_sharded(cfg, mesh, states)
-        ctx = no_kernels() if use_pallas is False else contextlib.nullcontext()
-        with ctx, shard_context(mesh):
-            return _replay(cfg, states, packed, report, outputs)
+        dev = packed["scan_xyz"].device
+        if use_pallas is False:
+            rstep, captured, ctx = None, False, no_kernels()
+        else:
+            if dev not in steppers:
+                steppers[dev] = _stepper(cfg, dev, mesh, BATCHED_REPLAY_STEP)
+            (rstep, captured), ctx = steppers[dev], contextlib.nullcontext()
+        with ctx, shard_context(mesh), record_function("runner.batched_replay"):
+            return _replay(cfg, states, packed, report, outputs, rstep, captured)
 
     return replay

@@ -678,7 +678,8 @@ def test_init_state_defaults_to_the_card(cuda_device):
 def test_batched_replay_matches_single_on_the_card(cuda_device):
     """make_batched_replay through kernels B3 and B4 gives each robot the
     poses of its make_scan_replay, bit for bit, with B4 and B3 at BT
-    launched once per tick."""
+    launched once per tick (the captured graph's replays, as the launch
+    counters read them)."""
     cfg = _small_cfg()
     seqs = [make_tunnel_sequence(num_scans=5, azimuth_steps=256, step=s, seed=i)
             for i, s in enumerate((0.3, 0.4, 0.35))]
@@ -689,14 +690,109 @@ def test_batched_replay_matches_single_on_the_card(cuda_device):
         st = pipeline.init_state(cfg, initial_pose=torch.as_tensor(s.gt_poses[0], dtype=torch.float32))
         ref.append(np_(single(st, p)[1][0]))
     states = pipeline.init_states(cfg, np.stack([s.gt_poses[0] for s in seqs]))
-    tmom.batched_launches = 0
-    before = dict(tnn.batched_launches)
+    reset_launches()
     _, (poses, _, _) = runner.make_batched_replay(cfg)(states, runner.stack_packed(packed))
-    assert tmom.batched_launches == 5
-    assert tnn.batched_launches[tnn.BT] - before[tnn.BT] == 5
-    assert tnn.batched_launches[tnn.SCAN_BT] > before[tnn.SCAN_BT]
+    launches = read_launches()
+    assert launches["moments_visits_batched"] == 5
+    assert launches["nn_visits_batched_map"] == 5
+    assert launches["nn_visits_batched_scan"] > 5
+    assert not any(launches[k] for k in ("moments_visits", "nn_visits_scan", "nn_visits_map")), launches
     for b in range(len(seqs)):
         np.testing.assert_array_equal(np_(poses[:, b]), ref[b])
+
+
+# -- the captured batched step (runner.make_batched_replay: one graph a tick) --
+
+FLEET_ROBOTS, FLEET_SCANS = 4, 240
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+HOST_SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
+def _spot_cfg():
+    """LOCUS's Spot profile (`LocusConfig.robot_profile("spot")`: the IMU
+    prior, 25 scan-to-submap trips) at bench.py's production shapes."""
+    spot = cfg_mod.LocusConfig.robot_profile("spot")
+    return cfg_mod.production_config().replace(fusion=spot.fusion, localization=spot.localization)
+
+
+def _fleet(cfg, robots, scans, azimuth, step):
+    seqs = [make_tunnel_sequence(num_scans=scans, azimuth_steps=azimuth, step=step, seed=b) for b in range(robots)]
+    return seqs, [runner.pack_sequence(s, cfg) for s in seqs], np.stack([s.gt_poses[0] for s in seqs])
+
+
+def test_captured_batched_replay_matches_eager_and_single_on_the_card(cuda_device):
+    """A 240-sweep Spot pass of 4 robots (each its own tunnel, 0.16 m a
+    sweep): make_batched_replay, captured (one graph a tick), against the
+    eager batched step through the same kernels, and each robot against
+    its own captured single replay; every output of every tick bit for
+    bit. The batched graph stamps one row a tick under its own name, and
+    its GICP loops count the member-trips run and needed."""
+    from locus_tpu_torch.metrics import RateReport
+    from locus_tpu_torch.ops import graph
+
+    cfg = _spot_cfg()
+    seqs, packed, init = _fleet(cfg, FLEET_ROBOTS, FLEET_SCANS, 1800, 0.16)
+    stacked = runner.stack_packed(packed)
+    eager = []
+    runner._replay(cfg, pipeline.init_states(cfg, init), stacked, None, eager)       # eager, kernels on
+    eager = [[np_(x) for x in o] for o in eager]
+    graph.drop_replays()
+    graph.drop_counters()
+    report, captured = RateReport(), []
+    runner.make_batched_replay(cfg)(pipeline.init_states(cfg, init), stacked, report=report, outputs=captured)
+    assert report.captured
+    captured = [[np_(x) for x in o] for o in captured]
+    fields = pipeline.StepOutput._fields
+    for i in range(FLEET_SCANS):
+        for name, a, b in zip(fields, captured[i], eager[i]):
+            np.testing.assert_array_equal(a, b, err_msg=f"tick {i}: {name}, captured against eager")
+    single = runner.make_scan_replay(cfg)
+    for b, (s, p) in enumerate(zip(seqs, packed)):
+        outs, single_report = [], RateReport()
+        single(pipeline.init_state(cfg, initial_pose=torch.as_tensor(s.gt_poses[0], dtype=torch.float32)), p,
+               report=single_report, outputs=outs)
+        assert single_report.captured
+        for i, o in enumerate(outs):
+            for name, a, x in zip(fields, captured[i], o):
+                np.testing.assert_array_equal(a[b], np_(x), err_msg=f"tick {i}, robot {b}: {name}, against its single")
+    rows = [r for r in graph.replay_records() if r["step"] == runner.BATCHED_REPLAY_STEP]
+    assert len(rows) == 1 and rows[0]["replays"] == FLEET_SCANS
+    counts = graph.read_counters()      # every replay's, none of the warm-up's
+    for stage, field in (("stage_s2s", "odom_iterations"), ("stage_s2m", "loc_iterations")):
+        its = np.stack([o[fields.index(field)] for o in captured]).astype(np.int64)
+        assert counts[f"{stage}/gicp.member_trips_run"] == FLEET_ROBOTS * its.max(axis=1).sum()
+        assert counts[f"{stage}/gicp.member_trips_needed"] == its.sum()
+
+
+def test_captured_batched_step_launches_one_graph_a_tick(cuda_device):
+    """After its capture, a tick of the batched step is one graph launch
+    from the host: no kernel launch and no synchronisation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = _small_cfg()
+    _, packed, init = _fleet(cfg, 4, 12, 256, 0.3)
+    stacked = runner.stack_packed(packed)
+    rstep = runner.make_replay_step(cfg, name=runner.BATCHED_REPLAY_STEP)
+    state = pipeline.init_states(cfg, init)
+    ticks = [[stacked[k][i] for k in runner.PACKED_KEYS] for i in range(12)]
+    for args in ticks[:4]:
+        state, _ = rstep(state, *args)
+    def host_calls(body):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            body()
+            torch.cuda.synchronize()
+        return {e.key: e.count for e in prof.key_averages() if e.device_type != torch.autograd.DeviceType.CUDA}
+
+    def loop():
+        nonlocal state
+        for args in ticks[4:]:
+            state, _ = rstep(state, *args)
+
+    host, fence = host_calls(loop), host_calls(lambda: None)    # the profiler's and the fence's own syncs
+    assert host.get("cudaGraphLaunch", 0) == 8, host
+    assert sum(host.get(k, 0) for k in HOST_LAUNCHES) == 0, host
+    assert sum(host.get(k, 0) for k in HOST_SYNCS) == sum(fence.get(k, 0) for k in HOST_SYNCS), (host, fence)
 
 
 # -- the other single-card paths: NDT, the voxel-hash map, LOAM features --

@@ -166,7 +166,7 @@ def captured_profile(torch, runner, cfg, inputs, state0, first, n):
     stamps = replay_stamps(graph.replay_records(), graph.clock_offset(st.voxel_leaf.device))
     traced = trace_steps(torch, rstep, copy_state(start), inputs[first:first + n])
     return traced | {
-        "setup_seconds": rstep.graph.setup_seconds,
+        "setup_seconds": rstep.setup_seconds,
         "untraced_wall_ms_per_scan": untraced_ms,
         "device_idle_share_untraced": 1.0 - traced["device_busy_ms_per_scan"] / untraced_ms,
         "stamps": stamps,
