@@ -18,7 +18,9 @@ Phases, each printing one JSON line:
                from the reference runs' states; B5 on B1's inputs, B6 on
                B4's; B7 on the step's two GICP calls, scan-to-scan and
                scan-to-submap, one trip and the whole registration bit
-               for bit), against its plain version on the same inputs, timed
+               for bit; B8 on the step's own float64 Ap after the
+               scan-to-submap registration), against its plain version on
+               the same inputs, timed
                with CUDA events beside the plain version, a one-call
                PyTorch yardstick where one exists, and the bound from this
                run's visited pairs and the launch floor of the grid and
@@ -207,6 +209,8 @@ BATCHED_PATH = ("moments_visits_batched", "nn_visits_batched_scan", "nn_visits_b
 # B7's launches (a GICP trip, single or batched) and the CUDA trips that
 # ran its plain version (covariances other than the normals' disks)
 GICP_ROWS = ("gicp_trip", "gicp_plain_trips")
+# B8's launches (the covariance's 6x6 eigendecomposition, single or batched)
+EIGH_ROWS = ("eigh6",)
 # B7's timed trips: convergence never reached, so each does a whole trip
 GICP_NEVER = {"tf_epsilon": 1e-30, "rotation_epsilon": 1e-30, "final_correspondence_relookup": False}
 # the other single-card paths (phase 8) and the kernels each must launch:
@@ -1706,10 +1710,67 @@ def check_gicp(torch, build, name, source, target, rcfg, counter):
     }
 
 
+def step_ap(torch, source, target, rcfg):
+    """The float64 Ap of the step's covariance after its scan-to-submap
+    registration, as `localization.measurement_update` forms it."""
+    from locus_tpu_torch import localization
+    from locus_tpu_torch.registration.registry import make_registrar
+
+    icp = make_registrar(rcfg)(source, target)
+    return localization.compute_ap_point2plane(source.xyz.double(), source.mask, target.normals.double(),
+                                               icp.correspondences, icp.corr_mask)
+
+
+def check_eigh(torch, build, name, Ap, counter):
+    """Kernel B8 against its plain version on the step's own Ap (one
+    robot's (6, 6) or a batch's): the eigenpairs bit for bit against the
+    plain version's batched products (a lone matrix stacked twice: cuBLAS
+    takes an unbatched 6x6 product in another order); `max_abs_err` the
+    largest difference from the plain version called as the step called
+    it. Times: `ms` B8 alone; `plain_ms` the plain version in a CUDA graph,
+    as the captured step ran it."""
+    from locus_tpu_torch.ops.kernels import eigh as teigh, restore_launches, save_launches
+
+    saved = save_launches()
+    got = teigh.eigh6(Ap)
+    single = Ap.dim() == 2
+    want = teigh.plain_eigh6(torch.stack([Ap, Ap]) if single else Ap)
+    if single:
+        want = tuple(x[0] for x in want)
+    bits = lambda x: x.contiguous().view(torch.int64)
+    mismatches = [k for k, a, b in zip(("eigenvalues", "eigenvectors"), got, want) if not torch.equal(bits(a), bits(b))]
+    called = teigh.plain_eigh6(Ap)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, called))
+    ms = device_time_ms(torch, lambda: teigh.eigh6(Ap))
+    stream, cuda_graph = torch.cuda.Stream(Ap.device), torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        teigh.plain_eigh6(Ap)
+    torch.cuda.synchronize(Ap.device)
+    with torch.cuda.graph(cuda_graph, stream=stream):
+        teigh.plain_eigh6(Ap)
+    plain_ms = device_time_ms(torch, cuda_graph.replay)
+    batch = Ap[..., 0, 0].numel()
+    grid, threads = teigh.launch_grid(batch)
+    # per member 30 rounds: 3 rotations (~18 operations each) and 108
+    # FMAs (the row mix of M, the column mixes of M and V: two each for
+    # 36 + 36 + 36 entries), an FMA as two; 36 doubles in, 42 out
+    b, by = bound_ms(batch * 30 * (3 * 18 + 2 * 108), batch * 78 * 8)
+    restore_launches(saved)   # comparison launches are not main-path launches
+    return not mismatches, {
+        "name": name, "route": "cuda", "source": "locus_tpu_torch/csrc/eigh.cu",
+        "replaces": "none: the JAX jacobi_eigh is XLA-fused (locus_tpu/utils/linalg.py)",
+        "batch": batch, "grid": list(grid), "threads": threads, "mismatches": mismatches,
+        "max_abs_err": err, "tolerance": "eigenpairs bit for bit against the plain version's batched products",
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": None,
+        "floor_ms": floor_ms(torch, build, grid, threads), "counter": counter,
+    }
+
+
 def kernel_checks(torch, tnn, tmom, build, cfg, pc, state, suffix, raw=None):
     """B1/B5 and B2 (scan, map) on one robot's inputs, or B4/B6, B3 (scan,
     map) and B3 map at B = 16 on a batch's, all from the reference run's
-    state; given the raw sweep, B7 on the step's two GICP calls."""
+    state; given the raw sweep, B7 on the step's two GICP calls and B8 on
+    the step's Ap."""
     radius = cfg.filtering.normals_radius_scale * state.voxel_leaf
     ok_m, results = check_moments(torch, tmom, build, pc.xyz, radius, suffix if pc.xyz.dim() == 2 else "")
     oks = [ok_m]
@@ -1718,6 +1779,10 @@ def kernel_checks(torch, tnn, tmom, build, cfg, pc, state, suffix, raw=None):
         oks.append(ok), results.append(res)
     for name, source, target, rcfg in gicp_cases(torch, cfg, raw, state, suffix) if raw is not None else ():
         ok, res = check_gicp(torch, build, name, source, target, rcfg, f"gicp_trip{suffix}")
+        oks.append(ok), results.append(res)
+    if raw is not None:
+        _, source, target, rcfg = gicp_cases(torch, cfg, raw, state, suffix)[1]
+        ok, res = check_eigh(torch, build, f"eigh6{suffix}", step_ap(torch, source, target, rcfg), f"eigh6{suffix}")
         oks.append(ok), results.append(res)
     return all(oks), results
 
@@ -1739,6 +1804,19 @@ def gicp_problems(record):
                 problems.append(f"{phase}: B7 launched on the adaptive-covariance path: {b7}")
             elif path not in ("features", "ndt") and (b7 <= 0 or plain):
                 problems.append(f"{phase}: GICP trips on the disk path: B7 {b7}, plain {plain}")
+    return problems
+
+
+def eigh_problems(record):
+    """B8 runs every covariance on the card: each phase launches it."""
+    phases = (("pipeline", "batched") + tuple(PATHS) + ("live", "slam", "husky")
+              + tuple(f"batched_{p}" for p in BATCHED_PATHS) + ("sharded", "sharded_batched", "sharded_live"))
+    problems = []
+    for phase in phases:
+        runs = record[phase]["launches"]
+        for launches in runs if isinstance(runs, list) else [runs]:
+            if launches.get("eigh6", 0) <= 0:
+                problems.append(f"{phase}: no B8 launch: {launches.get('eigh6')}")
     return problems
 
 
@@ -2193,7 +2271,8 @@ def main() -> int:
         finally:
             shutil.rmtree(workdir / RANK_INPUTS, ignore_errors=True)
         problems = (sharded_problems(record["sharded"], cap) + sharded_batched_problems(record["sharded_batched"], cap)
-                    + sharded_live_problems(record["sharded_live"]) + gicp_problems(record))
+                    + sharded_live_problems(record["sharded_live"]) + gicp_problems(record)
+                    + eigh_problems(record))
         if problems:
             raise RuntimeError("; ".join(problems))
 
@@ -2227,14 +2306,14 @@ def main() -> int:
     # B7's trips and the plain trips on the card: the single paths, the
     # batched ones (`_batched`) and husky's (`_husky`), the sharded ranks
     # below; both stages on one row
-    counts |= {k: sum(record[p]["launches"][k] for p in single) for k in GICP_ROWS}
-    counts |= {f"{k}_batched": sum(record[p]["launches"][k] for p in batched) for k in GICP_ROWS}
+    counts |= {k: sum(record[p]["launches"][k] for p in single) for k in GICP_ROWS + EIGH_ROWS}
+    counts |= {f"{k}_batched": sum(record[p]["launches"][k] for p in batched) for k in GICP_ROWS + EIGH_ROWS}
     # the husky path's launches on its own rows (B1, B2 scan and map)
     husky = record["husky"]["launches"]
     counts |= {f"moments_visits{HUSKY_SUFFIX}": husky["moments_visits"],
                f"nn_visits{HUSKY_SUFFIX}_scan": husky["nn_visits_scan"],
                f"nn_visits{HUSKY_SUFFIX}_map": husky["nn_visits_map"]}
-    counts |= {f"{k}{HUSKY_SUFFIX}": husky[k] for k in GICP_ROWS}
+    counts |= {f"{k}{HUSKY_SUFFIX}": husky[k] for k in GICP_ROWS + EIGH_ROWS}
     # the sharded phases, summed over their ranks: B1 and B2 scan on the
     # single rows, B3 scan and B4 on the batched rows, the map 1-NN on the
     # `_shard` rows (one shard's operand)
@@ -2245,14 +2324,15 @@ def main() -> int:
             for k in rows:
                 key = k + SHARD_SUFFIX if k == shard_row else k
                 counts[key] = counts.get(key, 0) + launches[k]
-            for k in GICP_ROWS:
+            for k in GICP_ROWS + EIGH_ROWS:
                 counts[k + suffix] += launches[k]
     summary = [
         {k: v for k, v in r.items() if k in (
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "floor_ms", "trip_ms", "plain_trip_ms")}
         | {"launches": counts.get(r.get("counter", r["name"]), 0)}
-        | ({"plain_trips": counts[r["counter"].replace("gicp_trip", "gicp_plain_trips")]} if "counter" in r else {})
+        | ({"plain_trips": counts[r["counter"].replace("gicp_trip", "gicp_plain_trips")]}
+           if r.get("counter", "").startswith("gicp_trip") else {})
         for r in record["kernels"]["checks"] + record["husky"]["kernel_checks"]
     ]
     out = ROOT / "chiprun_out"

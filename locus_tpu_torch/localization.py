@@ -24,7 +24,7 @@ from locus_tpu_torch.odometry import gate, project_flat_ground
 from locus_tpu_torch.ops.dispatch import resolve_device
 from locus_tpu_torch.registration.gicp import GICPResult
 from locus_tpu_torch.registration.registry import make_registrar
-from locus_tpu_torch.utils.linalg import jacobi_eigh
+from locus_tpu_torch.ops.kernels.eigh import eigh6
 
 
 class LocalizationState(NamedTuple):
@@ -123,15 +123,17 @@ def covariance_from_ap_eig(ap_eigval, ap_eigvec, icp_max_covariance: float):
 def point2plane_covariance(Ap: torch.Tensor, icp_max_covariance: float):
     """cov = 0.05^2 Ap^-1, eigenvalues clamped to [1e-12,
     icp_max_covariance], and the condition number of the clamped spectrum
-    (.cc:469-541), from one Jacobi eigendecomposition of Ap."""
-    eigval, eigvec = jacobi_eigh(0.5 * (Ap + Ap.transpose(-1, -2)))
+    (.cc:469-541), from one Jacobi eigendecomposition of Ap (B8 on the
+    card)."""
+    eigval, eigvec = eigh6(Ap)
     return covariance_from_ap_eig(eigval, eigvec, icp_max_covariance)
 
 
 def compute_observability(Ap: torch.Tensor):
     """Eigendecomposition of Ap (.cc:439-467): (eigenvalues ascending,
-    eigenvectors as columns)."""
-    return jacobi_eigh(0.5 * (Ap + Ap.transpose(-1, -2)))
+    eigenvectors as columns): `utils/linalg.py::jacobi_eigh` of its
+    symmetric part, one B8 launch on the card."""
+    return eigh6(Ap)
 
 
 def measurement_update(

@@ -426,9 +426,10 @@ _accounts: list = []
 
 # A replay's stamps: a row of the device ring (slot 0 the head, then each
 # stage's entry and exit, then the tail) and a row of the host ring, at
-# the replay's index modulo the rows. 8192 rows hold 96 s of replays at
-# 85 a second.
-STAMP_ROWS = 8192
+# the replay's index modulo the rows. 32768 rows hold 109 s of replays at
+# 300 a second (a benchmark window and its warm pass at the captured
+# single step's rate; a reader leaves out a ring that wrapped).
+STAMP_ROWS = 32768
 STAMP_SLOTS = 32
 HOST_STAMPS = ("call", "replay", "return")
 

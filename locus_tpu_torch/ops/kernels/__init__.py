@@ -12,9 +12,9 @@ launches, as counted at capture, to the counters first."""
 
 
 def _modules():
-    from locus_tpu_torch.ops.kernels import gicp as tgicp, moments as tmom, nn as tnn
+    from locus_tpu_torch.ops.kernels import eigh as teigh, gicp as tgicp, moments as tmom, nn as tnn
 
-    return tmom, tnn, tgicp
+    return tmom, tnn, tgicp, teigh
 
 
 def reset_launches() -> None:
@@ -22,13 +22,14 @@ def reset_launches() -> None:
     captured steps' replays too."""
     from locus_tpu_torch.ops import graph
 
-    tmom, tnn, tgicp = _modules()
+    tmom, tnn, tgicp, teigh = _modules()
     graph.drop_launches()
     for counts in (tnn.launches, tnn.batched_launches):
         counts.update({bt: 0 for bt in counts})
     tnn.other_launches.clear()
     tmom.launches = tmom.batched_launches = tmom.dense_launches = tmom.dense_batched_launches = 0
     tgicp.trip_launches = tgicp.plain_trips = 0
+    teigh.launches = 0
 
 
 def raw_launches() -> dict:
@@ -36,8 +37,8 @@ def raw_launches() -> dict:
     replays; B2/B3 at another chunk size than the pipeline's two (a
     sweep's) as `nn_visits[_batched]_bt<size>`; B7's trips as
     `gicp_trip` and the CUDA trips that ran its plain version as
-    `gicp_plain_trips`."""
-    tmom, tnn, tgicp = _modules()
+    `gicp_plain_trips`; B8 as `eigh6`."""
+    tmom, tnn, tgicp, teigh = _modules()
     return {
         "moments_visits": tmom.launches,
         "nn_visits_scan": tnn.launches[tnn.SCAN_BT],
@@ -49,15 +50,17 @@ def raw_launches() -> dict:
         "moments_dense_batched": tmom.dense_batched_launches,
         "gicp_trip": tgicp.trip_launches,
         "gicp_plain_trips": tgicp.plain_trips,
+        "eigh6": teigh.launches,
     } | {f"nn_visits{'_batched' if batched else ''}_bt{bt}": n for (batched, bt), n in tnn.other_launches.items()}
 
 
 def add_launches(rows: dict) -> None:
     """Add launches by row name to the wrappers' counters."""
-    tmom, tnn, tgicp = _modules()
+    tmom, tnn, tgicp, teigh = _modules()
     fields = {"moments_visits": (tmom, "launches"), "moments_visits_batched": (tmom, "batched_launches"),
               "moments_dense": (tmom, "dense_launches"), "moments_dense_batched": (tmom, "dense_batched_launches"),
-              "gicp_trip": (tgicp, "trip_launches"), "gicp_plain_trips": (tgicp, "plain_trips")}
+              "gicp_trip": (tgicp, "trip_launches"), "gicp_plain_trips": (tgicp, "plain_trips"),
+              "eigh6": (teigh, "launches")}
     for name, n in rows.items():
         if name in fields:
             module, field = fields[name]
@@ -74,20 +77,21 @@ def add_launches(rows: dict) -> None:
 
 def save_launches():
     """A copy of every counter, for `restore_launches`."""
-    tmom, tnn, tgicp = _modules()
+    tmom, tnn, tgicp, teigh = _modules()
     return (dict(tnn.launches), dict(tnn.batched_launches), dict(tnn.other_launches),
             (tmom.launches, tmom.batched_launches, tmom.dense_launches, tmom.dense_batched_launches),
-            (tgicp.trip_launches, tgicp.plain_trips))
+            (tgicp.trip_launches, tgicp.plain_trips), teigh.launches)
 
 
 def restore_launches(saved) -> None:
     """Set every counter back to a `save_launches` copy."""
-    tmom, tnn, tgicp = _modules()
+    tmom, tnn, tgicp, teigh = _modules()
     for counts, old in zip((tnn.launches, tnn.batched_launches, tnn.other_launches), saved[:3]):
         counts.clear()
         counts.update(old)
     tmom.launches, tmom.batched_launches, tmom.dense_launches, tmom.dense_batched_launches = saved[3]
     tgicp.trip_launches, tgicp.plain_trips = saved[4]
+    teigh.launches = saved[5]
 
 
 def read_launches() -> dict:

@@ -19,15 +19,15 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("nn", "moments", "graph", "gicp")  # the sources the pipeline runs (graph: the IF nodes of a captured step)
+KERNELS = ("nn", "moments", "graph", "gicp", "eigh")  # the sources the pipeline runs (graph: the IF nodes of a captured step)
 FLOOR = "floor"              # the empty kernel that measurements time beside them
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# flags of one source besides NVCC_FLAGS: B7 rounds every product and sum
-# as PyTorch's separate kernels do, so nothing may contract into an FMA
-EXTRA_FLAGS = {"gicp": ("-fmad=false",)}
+# flags of one source besides NVCC_FLAGS: B7 and B8 round every product and
+# sum as PyTorch's separate kernels do, so nothing may contract into an FMA
+EXTRA_FLAGS = {"gicp": ("-fmad=false",), "eigh": ("-fmad=false",)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 # ptxas resource report of each build made in this process
