@@ -175,6 +175,7 @@ tools' runs hold warm-ups and timing loops, so their launches stay in
 phase 16's record), the nvidia-smi line, and the final `{"ok": true,
 ...}` line. The full record also goes to chiprun_out/chip_smoke.json.
 """
+import functools
 import json
 import math
 import shutil
@@ -1261,8 +1262,6 @@ def run_compiled(torch, np, runner, pipeline, cfg, seq, pipeline_rec, captured_p
     same call: poses, ATE, launches and rate beside phase 5's captured
     replay, then the last COMPILED_TRACE scans of each traced from the same
     state. Returns the phase record."""
-    import functools
-
     from locus_tpu_torch.metrics import ate_rmse
     from locus_tpu_torch.ops.kernels import read_launches, reset_launches
 
@@ -1434,13 +1433,27 @@ def nn_cases(torch, tnn, cfg, pc, state, suffix):
     return cases
 
 
+def uncounted(check):
+    """`check` with none of its kernel launches recorded
+    (`ops.kernels.uncounted`): comparison launches are not main-path
+    launches."""
+    @functools.wraps(check)
+    def run(*args, **kwargs):
+        from locus_tpu_torch.ops.kernels import uncounted as nowhere
+
+        with nowhere():
+            return check(*args, **kwargs)
+
+    return run
+
+
+@uncounted
 def check_nn(torch, tnn, build, name, bt, radius, args, query, target):
     """Kernel B2 (one member) or B3 (a leading batch) against its plain
     version on one call: score bits and index on every row."""
     cnt, ids, q, t_aug = args
     batched = q.dim() == 3
-    run, counts = (tnn.nn_visits_batched, tnn.batched_launches) if batched else (tnn.nn_visits, tnn.launches)
-    before = dict(counts)
+    run = tnn.nn_visits_batched if batched else tnn.nn_visits
     ks, ki = run(*args, bt)
     torch.cuda.synchronize()
     ps, pi = tnn.nn_visits_plain(*args, bt)
@@ -1451,7 +1464,6 @@ def check_nn(torch, tnn, build, name, bt, radius, args, query, target):
     ok = score_bits == 0 and index_diff == 0
     visited = int(cnt.sum()) * tnn.BQ * bt
     ms = device_time_ms(torch, lambda: run(*args, bt))
-    counts.update(before)  # comparison launches are not main-path launches
     plain_ms = device_time_ms(torch, lambda: tnn.nn_visits_plain(*args, bt), reps=5)
     try:
         lib_ms = device_time_ms(torch, lambda: torch.cdist(query, target).min(-1), reps=5)
@@ -1492,6 +1504,7 @@ MOMENT_SOURCES = {
 }
 
 
+@uncounted
 def check_moments(torch, tmom, build, query, radius, suffix=""):
     """Kernel B1 (one member) or B4 (a leading batch, one radius each)
     against its plain version on one main-path call, then the dense kernel
@@ -1507,8 +1520,6 @@ def check_moments(torch, tmom, build, query, radius, suffix=""):
     names = kinds if batched else tuple(k + suffix for k in kinds)
     pruned = tmom.moments_visits_batched if batched else tmom.moments_visits
     dense = tmom.moments_dense_batched if batched else tmom.moments_dense
-    counters = ("batched_launches", "dense_batched_launches") if batched else ("launches", "dense_launches")
-    before = {c: getattr(tmom, c) for c in counters}
     dense_visits = tmom.dense_visits(qd, td)
     runs = (
         (names[0], lambda: pruned(cnt, ids, r2, q, t), lambda: tmom.moments_visits_plain(cnt, ids, r2, q, t),
@@ -1550,8 +1561,6 @@ def check_moments(torch, tmom, build, query, radius, suffix=""):
         })
         if kind == "dense":  # each tile's targets over this many blocks, merged in the launch
             results[-1]["target_splits"] = tmom.DENSE_SPLIT[0]
-    for c, v in before.items():
-        setattr(tmom, c, v)  # comparison launches are not main-path launches
     # dense (B5/B6) against pruned (B1/B4) counts over the valid queries:
     # they may differ only where a neighbour lies at the radius to f32
     # rounding (the float64 distance within 1e-5 r of r)
@@ -1610,6 +1619,7 @@ def gicp_cases(torch, cfg, raw, state, suffix):
             (f"gicp_trip{suffix}_submap", scan, submap, cfg.localization.registration))
 
 
+@uncounted
 def check_gicp(torch, build, name, source, target, rcfg, counter):
     """Kernel B7 against its plain version (`dispatch.no_kernels()`) on one
     GICP call of the step: one trip and the whole registration, every
@@ -1625,12 +1635,11 @@ def check_gicp(torch, build, name, source, target, rcfg, counter):
 
     from locus_tpu_torch.geometry import se3
     from locus_tpu_torch.ops import dispatch, graph
-    from locus_tpu_torch.ops.kernels import gicp as tgicp, restore_launches, save_launches
+    from locus_tpu_torch.ops.kernels import gicp as tgicp
     from locus_tpu_torch.ops.kernels.nn import (SCAN_BT, build_nn_target, chunk_boxes, nearest_bounded_pre,
                                                 nearest_bounded_raw)
     from locus_tpu_torch.registration.gicp import gicp_register
 
-    saved = save_launches()
     dev, lead, n = source.xyz.device, source.mask.shape[:-1], source.capacity
     rep = dataclasses.replace
 
@@ -1694,7 +1703,6 @@ def check_gicp(torch, build, name, source, target, rcfg, counter):
     # written (the point, its normal, mask and 1-NN index, the pair's
     # target point, normal and mask; the pair and distance out)
     b, by = bound_ms(source.mask.numel() * (92 + 117 * rcfg.inner_iterations), source.mask.numel() * 78)
-    restore_launches(saved)   # comparison launches are not main-path launches
     return ok, {
         "name": name, "route": "cuda", "source": "locus_tpu_torch/csrc/gicp.cu",
         "replaces": "none: the JAX trip is XLA-fused (locus_tpu/registration/gicp.py, the lax.while_loop body)",
@@ -1721,6 +1729,7 @@ def step_ap(torch, source, target, rcfg):
                                                icp.correspondences, icp.corr_mask)
 
 
+@uncounted
 def check_eigh(torch, build, name, Ap, counter):
     """Kernel B8 against its plain version on the step's own Ap (one
     robot's (6, 6) or a batch's): the eigenpairs bit for bit against the
@@ -1729,9 +1738,8 @@ def check_eigh(torch, build, name, Ap, counter):
     largest difference from the plain version called as the step called
     it. Times: `ms` B8 alone; `plain_ms` the plain version in a CUDA graph,
     as the captured step ran it."""
-    from locus_tpu_torch.ops.kernels import eigh as teigh, restore_launches, save_launches
+    from locus_tpu_torch.ops.kernels import eigh as teigh
 
-    saved = save_launches()
     got = teigh.eigh6(Ap)
     single = Ap.dim() == 2
     want = teigh.plain_eigh6(torch.stack([Ap, Ap]) if single else Ap)
@@ -1755,7 +1763,6 @@ def check_eigh(torch, build, name, Ap, counter):
     # FMAs (the row mix of M, the column mixes of M and V: two each for
     # 36 + 36 + 36 entries), an FMA as two; 36 doubles in, 42 out
     b, by = bound_ms(batch * 30 * (3 * 18 + 2 * 108), batch * 78 * 8)
-    restore_launches(saved)   # comparison launches are not main-path launches
     return not mismatches, {
         "name": name, "route": "cuda", "source": "locus_tpu_torch/csrc/eigh.cu",
         "replaces": "none: the JAX jacobi_eigh is XLA-fused (locus_tpu/utils/linalg.py)",

@@ -21,7 +21,7 @@ same bits in all three modes.
 `trips` is a 0-d integer (or bool) tensor that, once the step has run,
 holds how many of the gates that share it ran their body: the iteration
 count of a loop of gated trips, or the predicate of a single gate. The
-launch counters read it (`fold_launches`).
+launch ledger reads it (`kernels.read_launches`).
 
 `stage(name)` scopes a stage of the step: a `record_function(name)`, and
 inside a graph that records with stamps (`CapturedStep(stamps=True)`) a
@@ -33,10 +33,15 @@ also stamps its head and tail on the device and its call on the host
 the enclosing stage, on the device, in every mode; a captured graph adds
 it at every replay. `read_counters` reads them (one host read each).
 
+What a launch and a count record follows the mode: eager and masked, the
+launch ledger and the counters; a `CapturedStep`'s warm-up, nothing; its
+capture, the step's own record (`_Record`), which its replays add to.
+
 The port imports no JAX: this module is the whole of what it needs.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import contextvars
 import ctypes
@@ -51,6 +56,8 @@ from torch.overrides import TorchFunctionMode
 from torch.profiler import record_function
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from locus_tpu_torch.ops import kernels
+
 # None: eager; a _Masked: masked; a _Capture: capture
 _mode = contextvars.ContextVar("locus_torch_graph_mode", default=None)
 # the innermost open `stage`: the scope of a program counter
@@ -58,19 +65,25 @@ _stage = contextvars.ContextVar("locus_torch_graph_stage", default=None)
 
 
 class _Masked:
-    def __init__(self, preds: tuple):
+    def __init__(self, preds: tuple, recording: bool = True):
         self.preds = preds
+        self.recording = recording    # False: a warm-up, whose launches and counts go nowhere
 
 
 @contextlib.contextmanager
+def _masked(recording: bool):
+    token = _mode.set(_Masked((), recording))
+    try:
+        with contextlib.nullcontext() if recording else kernels.uncounted():
+            yield
+    finally:
+        _mode.reset(token)
+
+
 def masked():
     """Run the enclosed calls' gates in masked mode: every body runs, and
     its writes keep the old values where the gate's predicate is false."""
-    token = _mode.set(_Masked(()))
-    try:
-        yield
-    finally:
-        _mode.reset(token)
+    return _masked(True)
 
 
 def capturing() -> bool:
@@ -90,7 +103,7 @@ def gate(pred: torch.Tensor, body, trips: torch.Tensor) -> bool:
         return True
     if isinstance(mode, _Masked):
         # the body may rewrite `pred` itself (a loop's flag): keep its value
-        token = _mode.set(_Masked(mode.preds + (pred.clone(),)))
+        token = _mode.set(_Masked(mode.preds + (pred.clone(),), mode.recording))
         try:
             body()
         finally:
@@ -272,7 +285,8 @@ def _lib():
 
 class _Capture:
     """The bookkeeping of one capture: the body stream and its memory pool,
-    and which kernel launches fell in which gated region."""
+    the kernel launches outside any gate and those of each gated region
+    (a trip's), and the program counters the graph adds into."""
 
     def __init__(self, device: torch.device, stamps=None):
         self.stamps = stamps      # the step's _Stamps, or None: record no stamp
@@ -280,32 +294,28 @@ class _Capture:
         # The body's allocations: a pool of their own, since the graph's
         # pool takes only the capturing stream's
         self.pool = torch.cuda.MemPool()
-        self.regions: dict[int, tuple[torch.Tensor, dict]] = {}
-        self.gated: dict = {}     # the launches inside every gate, summed
+        self.regions: dict[int, tuple[torch.Tensor, collections.Counter]] = {}
+        self.ungated = collections.Counter()
+        self.counters: set = set()
         self.inside = False
 
     def gate(self, pred: torch.Tensor, body, trips: torch.Tensor) -> None:
-        from locus_tpu_torch.ops import kernels
-
         if self.inside:
             raise NotImplementedError("a gate inside a gated body is not captured")
         if pred.dtype != torch.bool or pred.numel() != 1 or not pred.is_cuda:
             raise ValueError(f"a gate's predicate is a 0-d bool CUDA tensor, got {pred.dtype} {tuple(pred.shape)}")
         lib = _lib()
-        before = kernels.raw_launches()
         main = torch.cuda.current_stream(pred.device)
         _check_status(lib.locus_if_begin(main.cuda_stream, pred.data_ptr(), self.body.cuda_stream), "locus_if_begin")
         self.inside = True
+        per_trip = collections.Counter()
         try:
-            with torch.cuda.stream(self.body), torch.cuda.use_mem_pool(self.pool):
+            with torch.cuda.stream(self.body), torch.cuda.use_mem_pool(self.pool), kernels.tally(per_trip):
                 body()
         finally:
             self.inside = False
             status = lib.locus_if_end(self.body.cuda_stream)
         _check_status(status, "locus_if_end")
-        per_trip = _minus(kernels.raw_launches(), before)
-        for k, v in per_trip.items():
-            self.gated[k] = self.gated.get(k, 0) + v
         key = id(trips)
         if key in self.regions and self.regions[key][1] != per_trip:
             raise RuntimeError(f"the gates of one region launched {self.regions[key][1]} and {per_trip}")
@@ -341,7 +351,7 @@ def stage(name: str):
 # -- program counters -------------------------------------------------------
 
 # Sums the step keeps on the device, by ("<stage>/<name>", device): int64
-# 0-d tensors made at their first add (a captured step's warm-up), never
+# 0-d tensors made at their first use (a captured step's warm-up), never
 # read on the step's path.
 _counters: dict = {}
 
@@ -350,8 +360,9 @@ def count(name: str, value: torch.Tensor) -> None:
     """Add the 0-d integer tensor `value` into the program counter `name`
     of the enclosing `stage` ("<stage>/<name>"), on its device: no host
     read. Inside a captured graph the add is one of its nodes, run at
-    every replay; a captured step's warm-up adds nothing. Not inside a
-    gated body, whose writes would count or not with the body."""
+    every replay; a captured step's warm-up makes the counter and adds
+    nothing. Not inside a gated body, whose writes would count or not with
+    the body."""
     mode = _mode.get()
     if (isinstance(mode, _Capture) and mode.inside) or (isinstance(mode, _Masked) and mode.preds):
         raise RuntimeError(f"the counter {name!r} is inside a gated body")
@@ -362,7 +373,10 @@ def count(name: str, value: torch.Tensor) -> None:
         if capturing():
             raise RuntimeError(f"the counter {key[0]!r} was first needed under capture")
         buf = _counters[key] = torch.zeros((), dtype=torch.int64, device=value.device)
-    buf.add_(value)
+    if isinstance(mode, _Capture):
+        mode.counters.add(key)
+    if not isinstance(mode, _Masked) or mode.recording:
+        buf.add_(value)
 
 
 def read_counters() -> dict:
@@ -375,9 +389,11 @@ def read_counters() -> dict:
 
 
 def drop_counters() -> None:
-    """Set every program counter to 0."""
-    for buf in _counters.values():
-        buf.zero_()
+    """Set the program counters that a live captured step adds into to 0,
+    and forget every other (an eager call's)."""
+    global _counters
+    held = {key for r in _kept() if r.step() is not None for key in r.counters}
+    _counters = {key: buf.zero_() for key, buf in _counters.items() if key in held}
 
 
 def _check_status(status: int, what: str) -> None:
@@ -387,42 +403,6 @@ def _check_status(status: int, what: str) -> None:
         raise RuntimeError(f"{what}: the stream is not capturing")
     build.check(status, what)
 
-
-def _minus(a: dict, b: dict) -> dict:
-    return {k: a[k] - b.get(k, 0) for k in a if a[k] != b.get(k, 0)}
-
-
-class _Account:
-    """The launches of one captured step's replays: `ungated` once a
-    replay, each of `regions` (launches a trip) times the trips that the
-    graph adds up in `trips` (int64, on the device) at every replay."""
-
-    def __init__(self, step, ungated: dict, regions: list, trips: torch.Tensor):
-        self.step = weakref.ref(step)
-        self.ungated, self.regions, self.trips = ungated, regions, trips
-        self.replays = 0
-
-    def take(self, rows: dict) -> None:
-        """Add the replays' launches to `rows` and start again at zero."""
-        if not self.replays:
-            return
-        trips = self.trips[: len(self.regions)].tolist()
-        for k, v in self.ungated.items():
-            rows[k] = rows.get(k, 0) + v * self.replays
-        for per_trip, n in zip(self.regions, trips):
-            for k, v in per_trip.items():
-                rows[k] = rows.get(k, 0) + v * n
-        self.drop()
-
-    def drop(self) -> None:
-        if self.replays:
-            self.trips.zero_()
-            self.replays = 0
-
-
-# the accounts of the captured steps, kept past their step until the
-# launches of its last replays are read
-_accounts: list = []
 
 # A replay's stamps: a row of the device ring (slot 0 the head, then each
 # stage's entry and exit, then the tail) and a row of the host ring, at
@@ -515,9 +495,50 @@ class _Stamps:
             self.replays = 0
 
 
-# the stamps of the captured steps that record them, kept past their step
-# until dropped
-_stamps: list = []
+class _Record:
+    """What one captured step's replays measure. Its launches: `ungated`
+    once a replay, each of `regions` (launches a trip) times the trips that
+    the graph adds up in `trips` (int64, on the device) at every replay,
+    until the ledger takes them (`kernels.read_launches`). Its `stamps` (a
+    _Stamps, or None), and the keys of the program counters it adds into."""
+
+    def __init__(self, step, ungated, regions: list, trips: torch.Tensor, stamps=None, counters=()):
+        self.step = weakref.ref(step)
+        self.ungated, self.regions, self.trips = ungated, regions, trips
+        self.stamps, self.counters = stamps, counters
+        self.replays = 0
+
+    def take(self, rows: collections.Counter) -> None:
+        """Add the replays' launches to `rows` and start again at zero."""
+        if not self.replays:
+            return
+        rows.update({k: v * self.replays for k, v in self.ungated.items()})
+        for per_trip, n in zip(self.regions, self.trips[: len(self.regions)].tolist()):
+            rows.update({k: v * n for k, v in per_trip.items()})
+        self.drop()
+
+    def drop(self) -> None:
+        """Forget the replays' launches."""
+        if self.replays:
+            self.trips.zero_()
+            self.replays = 0
+
+
+# the captured steps' records, each kept past its step until what its
+# replays measured is read or dropped
+_records: list = []
+
+
+def _kept() -> list:
+    """`_records`, less those of steps that are gone with nothing unread."""
+    _records[:] = [r for r in _records
+                   if r.step() is not None or r.replays or (r.stamps is not None and r.stamps.replays)]
+    return _records
+
+
+def _register(record: _Record) -> None:
+    _kept().append(record)
+    kernels.keep_account(record)
 
 
 def replay_records() -> list:
@@ -530,15 +551,16 @@ def replay_records() -> list:
     `STAMP_ROWS`, so past that count the oldest row is at `replays %
     STAMP_ROWS`), and `offset_ns` (the device's clock less the host's)
     with its `bracket_ns`. Reading consumes nothing."""
-    return [s.read() for s, _ in _stamps if s.replays]
+    return [r.stamps.read() for r in _kept() if r.stamps is not None and r.stamps.replays]
 
 
 def drop_replays() -> None:
     """Forget the stamps of every replay so far; those of steps that are
     gone are dropped."""
-    for s, _ in _stamps:
-        s.drop()
-    _stamps[:] = [(s, step) for s, step in _stamps if step() is not None]
+    for r in _records:
+        if r.stamps is not None:
+            r.stamps.drop()
+    _kept()
 
 
 class CapturedStep:
@@ -562,8 +584,9 @@ class CapturedStep:
     eager step. Kernel launches inside the graph are counted at capture
     (the warm-up's and the capture's own do not count): every replay adds
     the launches outside any gate once, and each gated region's launches
-    times the trips it ran, held on the device until `fold_launches`. The
-    program counters (`count`) add at every replay, not in the warm-up.
+    times the trips it ran, held on the device until the ledger reads
+    them. The program counters (`count`) add at every replay, not in the
+    warm-up. The step's `record` (`_Record`) holds both, and its stamps.
 
     With `stamps` (LOCUS's `b_enable_computation_time_profiling`) the
     graph also stamps the device's clock at its head, at its tail and at
@@ -588,10 +611,10 @@ class CapturedStep:
         if self.stamps:
             t_replay = time.perf_counter_ns()
             self.graph.replay()
-            self.records.add((t_call, t_replay, time.perf_counter_ns()))
+            self.record.stamps.add((t_call, t_replay, time.perf_counter_ns()))
         else:
             self.graph.replay()
-        self.account.replays += 1
+        self.record.replays += 1
         return self.state, self.out
 
     def _load(self, static: list, given: list) -> None:
@@ -605,42 +628,35 @@ class CapturedStep:
             a.copy_(b)
 
     def _capture(self, state, inputs) -> None:
-        from locus_tpu_torch.ops import kernels
-
         dev = next(x for x in _leaves(state) if x is not None).device
         _lib()
-        counts = kernels.save_launches()
-        counters = {k: v.clone() for k, v in _counters.items()}
         self.state, self.inputs = _map(_fresh, state), _map(_fresh, inputs)
         self._state_leaves, self._input_leaves = _leaves(self.state), _leaves(self.inputs)
         t0 = time.perf_counter()
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream), masked():
+        with torch.cuda.stream(stream), _masked(recording=False):
             self.fn(_map(_fresh, self.state), *self.inputs)
         torch.cuda.current_stream(dev).wait_stream(stream)
-        for k, v in _counters.items():      # the warm-up counts nothing
-            v.copy_(counters[k]) if k in counters else v.zero_()
         torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
 
-        records = None
+        stamps = None
         if self.stamps:
-            records = _Stamps(self.name, dev)
-            records.offset_ns, records.bracket_ns = clock_offset(dev)
+            stamps = _Stamps(self.name, dev)
+            stamps.offset_ns, stamps.bracket_ns = clock_offset(dev)
         acc = torch.zeros(_MAX_REGIONS, dtype=torch.int64, device=dev)
-        cap = _Capture(dev, records)
+        cap = _Capture(dev, stamps)
         graph = torch.cuda.CUDAGraph()
-        before = kernels.raw_launches()
         token = _mode.set(cap)
         # capture_begin/end directly: torch.cuda.graph's context would also
         # empty the allocator's cache (and collect garbage) at every capture
         try:
-            with torch.cuda.stream(stream):
+            with torch.cuda.stream(stream), kernels.tally(cap.ungated):
                 graph.capture_begin()
                 try:
-                    if records is not None:
-                        records.stamp()
+                    if stamps is not None:
+                        stamps.stamp()
                     new_state, out = self.fn(self.state, *self.inputs)
                     self.out = self._close(new_state, out)
                     trips = [t for t, _ in cap.regions.values()]
@@ -648,8 +664,8 @@ class CapturedStep:
                         raise RuntimeError(f"{len(trips)} gated regions, at most {_MAX_REGIONS}")
                     if trips:
                         acc[: len(trips)].add_(torch.stack([t.to(torch.int64) for t in trips]))
-                    if records is not None:
-                        records.tail = records.stamp(bump=True)
+                    if stamps is not None:
+                        stamps.tail = stamps.stamp(bump=True)
                 except BaseException:
                     with contextlib.suppress(Exception):     # the error in flight names the op
                         graph.capture_end()
@@ -661,15 +677,9 @@ class CapturedStep:
         finally:
             _mode.reset(token)
         self.setup_seconds = {"warm_up": t1 - t0, "record": t2 - t1, "instantiate": time.perf_counter() - t2}
-        captured = _minus(kernels.raw_launches(), before)
-        kernels.restore_launches(counts)
         regions = [per_trip for _, per_trip in cap.regions.values()]
-        ungated = {k: v - cap.gated.get(k, 0) for k, v in captured.items() if v != cap.gated.get(k, 0)}
-        self.account = _Account(self, ungated, regions, acc)
-        _accounts.append(self.account)
-        if records is not None:
-            self.records = records
-            _stamps.append((records, weakref.ref(self)))
+        self.record = _Record(self, cap.ungated, regions, acc, stamps, cap.counters)
+        _register(self.record)
         # the trips tensors and the body pool live as long as the graph
         self._keep = (cap, [t for t, _ in cap.regions.values()])
         self.graph = graph
@@ -695,21 +705,3 @@ class CapturedStep:
             a.copy_(b)
         return out
 
-
-def fold_launches() -> dict:
-    """The kernel launches of every captured step's replays since the last
-    fold, by `read_launches`' row names (one host read per step that
-    replayed); each account starts again at zero, and those of steps that
-    are gone are dropped."""
-    rows: dict = {}
-    for account in _accounts:
-        account.take(rows)
-    _accounts[:] = [a for a in _accounts if a.step() is not None]
-    return rows
-
-
-def drop_launches() -> None:
-    """Forget the launches of every captured step's replays so far."""
-    for account in _accounts:
-        account.drop()
-    _accounts[:] = [a for a in _accounts if a.step() is not None]

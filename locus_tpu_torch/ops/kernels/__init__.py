@@ -2,103 +2,80 @@
 version. Sources live in `locus_tpu_torch/csrc/`; `build.py` compiles
 them at first use.
 
-Each wrapper counts its launches (`nn.launches`, `moments.launches`, ...):
-`reset_launches` sets every counter of this process to 0 and
-`read_launches` reads them by the row names of chip_smoke.py's `kernels`
-line; a tool or the smoke script resets them just before the run it
-measures and reads them just after. A replay of a captured step
-(`ops.graph.CapturedStep`) runs no wrapper: `read_launches` adds its
-launches, as counted at capture, to the counters first."""
+The launch ledger: each wrapper records its launches through
+`count_launch(row)`, by the row names of chip_smoke.py's `kernels` line.
+`reset_launches` sets every row of this process to 0 and `read_launches`
+reads them; a tool or the smoke script resets them just before the run it
+measures and reads them just after. Where a launch counts is set by the
+caller (`tally`): the ledger by default, nowhere inside `uncounted()`, and
+a captured step's own tally while `ops.graph.CapturedStep` records it. A
+replay of a captured step runs no wrapper: the graph hands each step's
+account to the ledger (`keep_account`), and `read_launches` adds its
+replays' launches, as counted at capture, first."""
+import collections
+import contextlib
+import contextvars
+import weakref
+
+# The rows every read holds, 0 where nothing launched: B1, B2 (scan, map),
+# B3 (scan, map), B4, B5, B6, B7's trips and the CUDA trips that ran its
+# plain version, B8. B2/B3 at another chunk size than the pipeline's two (a
+# sweep's) add `nn_visits[_batched]_bt<size>` once they launch.
+ROWS = ("moments_visits", "nn_visits_scan", "nn_visits_map", "nn_visits_batched_scan", "nn_visits_batched_map",
+        "moments_visits_batched", "moments_dense", "moments_dense_batched", "gicp_trip", "gicp_plain_trips",
+        "eigh6")
+
+_launches = collections.Counter()
+# where a launch counts: None the ledger, else a Counter of the caller's
+_tally = contextvars.ContextVar("locus_torch_launch_tally", default=None)
+# the captured steps' accounts (`ops.graph`): `take(rows)` adds the launches
+# of the replays since the last take to the Counter `rows`, `drop()` forgets them
+_accounts = weakref.WeakSet()
 
 
-def _modules():
-    from locus_tpu_torch.ops.kernels import eigh as teigh, gicp as tgicp, moments as tmom, nn as tnn
+def count_launch(row: str) -> None:
+    """Record one launch (or plain CUDA trip) under `row`."""
+    tally = _tally.get()
+    (_launches if tally is None else tally)[row] += 1
 
-    return tmom, tnn, tgicp, teigh
+
+@contextlib.contextmanager
+def tally(into: collections.Counter):
+    """Record the enclosed launches in `into`, not in the ledger."""
+    token = _tally.set(into)
+    try:
+        yield into
+    finally:
+        _tally.reset(token)
+
+
+def uncounted():
+    """Record none of the enclosed launches (a comparison's, a warm-up's)."""
+    return tally(collections.Counter())
+
+
+def keep_account(account) -> None:
+    """Add a captured step's replays (`take`, `drop`) to every read."""
+    _accounts.add(account)
 
 
 def reset_launches() -> None:
-    """Set every kernel launch counter of this process to 0, those of the
+    """Set every kernel launch row of this process to 0, those of the
     captured steps' replays too."""
-    from locus_tpu_torch.ops import graph
-
-    tmom, tnn, tgicp, teigh = _modules()
-    graph.drop_launches()
-    for counts in (tnn.launches, tnn.batched_launches):
-        counts.update({bt: 0 for bt in counts})
-    tnn.other_launches.clear()
-    tmom.launches = tmom.batched_launches = tmom.dense_launches = tmom.dense_batched_launches = 0
-    tgicp.trip_launches = tgicp.plain_trips = 0
-    teigh.launches = 0
+    _launches.clear()
+    for account in list(_accounts):
+        account.drop()
 
 
 def raw_launches() -> dict:
-    """The wrappers' counters by row name, without the captured steps'
-    replays; B2/B3 at another chunk size than the pipeline's two (a
-    sweep's) as `nn_visits[_batched]_bt<size>`; B7's trips as
-    `gicp_trip` and the CUDA trips that ran its plain version as
-    `gicp_plain_trips`; B8 as `eigh6`."""
-    tmom, tnn, tgicp, teigh = _modules()
-    return {
-        "moments_visits": tmom.launches,
-        "nn_visits_scan": tnn.launches[tnn.SCAN_BT],
-        "nn_visits_map": tnn.launches[tnn.BT],
-        "nn_visits_batched_scan": tnn.batched_launches[tnn.SCAN_BT],
-        "nn_visits_batched_map": tnn.batched_launches[tnn.BT],
-        "moments_visits_batched": tmom.batched_launches,
-        "moments_dense": tmom.dense_launches,
-        "moments_dense_batched": tmom.dense_batched_launches,
-        "gicp_trip": tgicp.trip_launches,
-        "gicp_plain_trips": tgicp.plain_trips,
-        "eigh6": teigh.launches,
-    } | {f"nn_visits{'_batched' if batched else ''}_bt{bt}": n for (batched, bt), n in tnn.other_launches.items()}
-
-
-def add_launches(rows: dict) -> None:
-    """Add launches by row name to the wrappers' counters."""
-    tmom, tnn, tgicp, teigh = _modules()
-    fields = {"moments_visits": (tmom, "launches"), "moments_visits_batched": (tmom, "batched_launches"),
-              "moments_dense": (tmom, "dense_launches"), "moments_dense_batched": (tmom, "dense_batched_launches"),
-              "gicp_trip": (tgicp, "trip_launches"), "gicp_plain_trips": (tgicp, "plain_trips"),
-              "eigh6": (teigh, "launches")}
-    for name, n in rows.items():
-        if name in fields:
-            module, field = fields[name]
-            setattr(module, field, getattr(module, field) + n)
-            continue
-        counts = tnn.batched_launches if name.startswith("nn_visits_batched") else tnn.launches
-        if name.endswith("_scan") or name.endswith("_map"):
-            bt = tnn.SCAN_BT if name.endswith("_scan") else tnn.BT
-            counts[bt] += n
-        else:
-            key = (name.startswith("nn_visits_batched"), int(name.rsplit("_bt", 1)[1]))
-            tnn.other_launches[key] = tnn.other_launches.get(key, 0) + n
-
-
-def save_launches():
-    """A copy of every counter, for `restore_launches`."""
-    tmom, tnn, tgicp, teigh = _modules()
-    return (dict(tnn.launches), dict(tnn.batched_launches), dict(tnn.other_launches),
-            (tmom.launches, tmom.batched_launches, tmom.dense_launches, tmom.dense_batched_launches),
-            (tgicp.trip_launches, tgicp.plain_trips), teigh.launches)
-
-
-def restore_launches(saved) -> None:
-    """Set every counter back to a `save_launches` copy."""
-    tmom, tnn, tgicp, teigh = _modules()
-    for counts, old in zip((tnn.launches, tnn.batched_launches, tnn.other_launches), saved[:3]):
-        counts.clear()
-        counts.update(old)
-    tmom.launches, tmom.batched_launches, tmom.dense_launches, tmom.dense_batched_launches = saved[3]
-    tgicp.trip_launches, tgicp.plain_trips = saved[4]
-    teigh.launches = saved[5]
+    """The rows, without the captured steps' replays."""
+    return {row: _launches[row] for row in ROWS} | {k: v for k, v in _launches.items() if k not in ROWS}
 
 
 def read_launches() -> dict:
-    """The counters by row name (`raw_launches`), after adding the
-    launches of the captured steps' replays since the last read (one host
-    read per captured step that replayed)."""
-    from locus_tpu_torch.ops import graph
-
-    add_launches(graph.fold_launches())
+    """The rows (`raw_launches`), after adding the launches of the captured
+    steps' replays since the last read (one host read per captured step
+    that replayed)."""
+    for account in list(_accounts):
+        account.take(_launches)
     return raw_launches()

@@ -28,10 +28,6 @@ from locus_tpu_torch.utils.linalg import jacobi_eigh
 N = 6
 WARPS = 4   # members a block (csrc/eigh.cu)
 
-# B8 launches since the last reset. CPU calls and those inside
-# `no_kernels()` are not counted.
-launches = 0
-
 
 def launch_grid(batch: int):
     """((x, y, z) grid, threads a block) of a B8 launch of `batch` members."""
@@ -49,9 +45,8 @@ def eigh6(Ap: torch.Tensor):
     returns them."""
     if not Ap.is_cuda or not dispatch.kernels_enabled():
         return plain_eigh6(Ap)
-    from locus_tpu_torch.ops.kernels import build
+    from locus_tpu_torch.ops.kernels import build, count_launch
 
-    global launches
     if Ap.dtype != torch.float64 or Ap.dim() < 2 or tuple(Ap.shape[-2:]) != (N, N):
         raise ValueError(f"locus_eigh6: expected float64 of shape (..., {N}, {N}), got {Ap.dtype} of {tuple(Ap.shape)}")
     lead = Ap.shape[:-2]
@@ -64,5 +59,5 @@ def eigh6(Ap: torch.Tensor):
     status = fn(Ap.data_ptr(), w.data_ptr(), v.data_ptr(), lead.numel(),
                 torch.cuda.current_stream(Ap.device).cuda_stream)
     build.check(status, "locus_eigh6")
-    launches += 1
+    count_launch("eigh6")
     return w, v

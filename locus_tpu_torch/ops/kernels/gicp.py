@@ -13,8 +13,9 @@ every step as those kernels do, so the two agree bit for bit.
 CUDA tensors, kernels enabled (not inside `dispatch.no_kernels()`), and
 the "normals" covariance mode without explicit covariances (the disks).
 Every other call runs the plain trip; a CUDA call with kernels enabled
-that does so (a mode whose covariances are full 3x3 matrices) counts in
-`plain_trips`. The kernel takes 1 to MAX_POINTS source points a member
+that does so (a mode whose covariances are full 3x3 matrices) counts its
+trips in the launch row `gicp_plain_trips`, and each B7 launch counts in
+`gicp_trip`. The kernel takes 1 to MAX_POINTS source points a member
 (32,768; every configured scan capacity is 4,096 or less); above, the
 wrapper raises.
 
@@ -38,13 +39,6 @@ TERMS = 27         # the Gauss-Newton step's column sums
 COLUMNS = TERMS + 2  # and the correspondences' two
 MAX_POINTS = THREADS * MAX_LEAVES
 
-# Trips since the last reset: B7 launches (one a trip, single or batched),
-# and CUDA trips that ran the plain version because the kernel does not
-# take their covariances. CPU trips and those inside `no_kernels()` are
-# not counted.
-trip_launches = 0
-plain_trips = 0
-
 
 def launch_grid(batch: int):
     """((x, y, z) grid, threads a block, dynamic shared bytes) of a B7
@@ -67,9 +61,8 @@ def gicp_trip(p, nn_idx, source, target, carry, cfg) -> None:
     j_fin (..., N) int64, d2_fin (..., N), go 0-d bool) written in place,
     `cfg` the RegistrationConfig. Raises on anything the kernel does not
     take."""
-    from locus_tpu_torch.ops.kernels import build
+    from locus_tpu_torch.ops.kernels import build, count_launch
 
-    global trip_launches
     src, src_n, src_mask = source
     tgt, tgt_n, tgt_mask = target
     T, it, delta, fitness, ncorr, j_fin, d2_fin, go = carry
@@ -112,4 +105,4 @@ def gicp_trip(p, nn_idx, source, target, carry, cfg) -> None:
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(status, "locus_gicp_trip")
-    trip_launches += 1
+    count_launch("gicp_trip")

@@ -72,12 +72,6 @@ SPLIT = (2, 4)
 # block j), 4 octets of queries a warp (256 threads a block).
 DENSE_SPLIT = (8, 4)
 
-# Launches of each CUDA kernel since the last reset (plain runs not counted).
-launches = 0                # B1
-batched_launches = 0        # B4
-dense_launches = 0          # B5
-dense_batched_launches = 0  # B6
-
 
 def moments_visits_plain(cnt, ids, r2, q, t, bt: int = MBT):
     """Plain PyTorch version of kernels B1/B4 (and, with every chunk on
@@ -137,7 +131,7 @@ def dense_scratch(batch: int, num_tiles: int, splits: int, device) -> torch.Tens
 def _moments_cuda(kind, cnt, ids, r2, q, t, bt: int, batched: bool):
     """Launch B1/B4 (`kind` "visits") or B5/B6 ("dense": `cnt` and `ids`
     None, the kernel visits every target) on the card."""
-    from locus_tpu_torch.ops.kernels import build
+    from locus_tpu_torch.ops.kernels import build, count_launch
 
     dense = kind == "dense"
     dev = q.device
@@ -166,8 +160,7 @@ def _moments_cuda(kind, cnt, ids, r2, q, t, bt: int, batched: bool):
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(status, entry)
-    counter = ("dense_" if dense else "") + ("batched_" if batched else "") + "launches"
-    globals()[counter] += 1
+    count_launch("moments_" + ("dense" if dense else "visits") + ("_batched" if batched else ""))
     return out
 
 

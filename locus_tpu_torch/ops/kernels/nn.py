@@ -52,16 +52,6 @@ SMALL_TARGET = 8  # a tile of at most this many slices is never split by slices
 TARGET_SPLITS = 8  # blocks a map tile's slices are split over
 BOX_BIG = 1e9
 
-# Launches of the CUDA kernels since the last reset, by chunk size (each
-# size is its own template instance): B2 (`launches`, one member) and B3
-# (`batched_launches`, one launch for a batch) at the pipeline's two sizes;
-# B2 or B3 at any other size (a benchmark's sweep) in `other_launches`, by
-# (batched, bt), so that the first two keep their keys. Plain runs are not
-# counted.
-launches = {SCAN_BT: 0, BT: 0}
-batched_launches = {SCAN_BT: 0, BT: 0}
-other_launches = {}
-
 
 def sq_norm3(x: torch.Tensor) -> torch.Tensor:
     """(..., 3) -> (...) x^2 + y^2 + z^2, summed left to right (a batch
@@ -302,7 +292,7 @@ def _nn_visits_cuda(cnt, ids, q, t_aug, bt: int, batched: bool, num_splits=None)
     """Launch B2 (one member) or B3 (`batched`) on the card. `num_splits`,
     a (query splits, target splits) pair, overrides `splits()`: the tests
     and tools/torch_nn_ab.py run every grid with it."""
-    from locus_tpu_torch.ops.kernels import build
+    from locus_tpu_torch.ops.kernels import build, count_launch
 
     dev = q.device
     for x, name, dtype, cols in (
@@ -330,11 +320,9 @@ def _nn_visits_cuda(cnt, ids, q, t_aug, bt: int, batched: bool, num_splits=None)
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(status, entry)
-    counts = batched_launches if batched else launches
-    if bt in counts:
-        counts[bt] += 1
-    else:
-        other_launches[batched, bt] = other_launches.get((batched, bt), 0) + 1
+    # a row a size, as each size is its own template instance
+    size = {SCAN_BT: "scan", BT: "map"}.get(bt, f"bt{bt}")
+    count_launch(f"nn_visits{'_batched' if batched else ''}_{size}")
     return d, i
 
 

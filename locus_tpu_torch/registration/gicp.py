@@ -54,7 +54,7 @@ from locus_tpu_torch.config import RegistrationConfig
 from locus_tpu_torch.core.cloud import PointCloud, take_rows
 from locus_tpu_torch.geometry import se3
 from locus_tpu_torch.ops import dispatch, graph
-from locus_tpu_torch.ops.kernels import gicp as trip_kernel
+from locus_tpu_torch.ops.kernels import count_launch, gicp as trip_kernel
 from locus_tpu_torch.ops.normals import eigh_sym3x3, knn_covariance, smallest_eigenvector_sym3x3
 from locus_tpu_torch.ops.kernels.nn import (
     SCAN_BT,
@@ -318,7 +318,7 @@ def gicp_register(
 
     def trip():
         if on_card:
-            trip_kernel.plain_trips += 1
+            count_launch("gicp_plain_trips")
         active = (it < cfg.iterations) & (delta >= 1.0)
         p = se3.transform_points(T, src0)
         d2, j = nearest_fn(p)

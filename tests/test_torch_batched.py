@@ -28,7 +28,7 @@ from locus_tpu_torch.io import synthetic
 from locus_tpu_torch.io.dataset import make_tunnel_sequence
 from locus_tpu_torch.mapping import keyframe_map as tkm
 from locus_tpu_torch.ops import normals as tnorm, voxel as tvoxel
-from locus_tpu_torch.ops.kernels import moments as tmom, nn as tnn
+from locus_tpu_torch.ops.kernels import moments as tmom, nn as tnn, raw_launches
 from locus_tpu_torch.pipeline import member, stack_states
 from locus_tpu_torch.registration.gicp import gicp_register
 from tests.torch_helpers import np_, to_torch
@@ -78,9 +78,9 @@ def test_batched_nn_matches_vmapped_pallas(clouds, bt):
     q, t = to_torch(qs), to_torch(ts)
     t_aug = tnn.build_nn_target(t, bt=bt)
     c_min, c_max = tnn.chunk_boxes(t, torch.ones(t.shape[:2], dtype=torch.bool), t_aug.shape[-2], bt=bt)
-    before = dict(tnn.batched_launches)
+    before = raw_launches()
     td, ti = (np_(x) for x in tnn.nearest_bounded_pre(q, t_aug, t, c_min, c_max, radius, bt=bt))
-    assert tnn.batched_launches == before  # CPU tensors: the plain version
+    assert raw_launches() == before  # CPU tensors: the plain version
 
     np.testing.assert_array_equal(np.isfinite(td), np.isfinite(jd))
     f = np.isfinite(jd)
@@ -127,9 +127,9 @@ def test_batched_pruned_moments_match_vmapped_pallas(clouds):
     j = jax.vmap(lambda q, t, r: jmom.radius_moments_pallas_pruned_comps(q, t, r, interpret=True))(
         jnp.asarray(qs), jnp.asarray(ts), jnp.asarray(radii)
     )
-    before = tmom.batched_launches
+    before = raw_launches()
     t = tmom.radius_moments_pruned_comps(to_torch(qs), to_torch(ts), to_torch(radii))
-    assert tmom.batched_launches == before
+    assert raw_launches() == before
     _assert_moments_close(t, j, _boundary(qs, ts, radii))
 
 

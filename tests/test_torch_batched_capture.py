@@ -17,7 +17,9 @@ replays take the first SCANS scans):
     stage, the member-trips run (B times the slowest member's iterations)
     and those the members needed (their own iterations), as the step
     outputs say;
-(d) a batched state is no capture blocker; a mesh still is.
+(d) a batched state is no capture blocker; a mesh still is;
+(e) a launch and a count are recorded by the mode (a capture's warm-up
+    records neither), and `drop_counters` forgets an eager call's counters.
 
 The card's own tests (tests/test_torch_gpu.py) hold the captured graph to
 the eager replay and to each robot's captured single replay.
@@ -32,10 +34,15 @@ import torch
 
 from locus_tpu.config import FusionConfig
 from locus_tpu_torch import pipeline, runner
+from locus_tpu_torch.config import RegistrationConfig
 from locus_tpu_torch.convert import config_from_dict
+from locus_tpu_torch.core.cloud import PointCloud
+from locus_tpu_torch.geometry import se3
+from locus_tpu_torch.io import synthetic
 from locus_tpu_torch.io.dataset import make_tunnel_sequence
 from locus_tpu_torch.metrics import RateReport
-from locus_tpu_torch.ops import graph
+from locus_tpu_torch.ops import graph, kernels
+from locus_tpu_torch.registration.gicp import gicp_register
 from tests.test_pipeline import small_cfg
 
 SCANS = 4
@@ -142,8 +149,50 @@ def test_counter_outside_a_stage_and_inside_a_gate():
     with pytest.raises(RuntimeError, match="inside a gated body"):
         with graph.masked():
             graph.gate(torch.tensor(True), lambda: graph.count("probe", torch.tensor(1)), trips=torch.tensor(0))
+    graph.drop_counters()            # no captured step adds into them: forgotten
+    assert "probe" not in graph.read_counters() and "stage_probe/probe" not in graph.read_counters()
+
+
+def test_an_eager_counter_outside_a_stage_is_gone_after_a_drop():
+    """An eager batched `gicp_register` outside any stage makes counters
+    of its own; `drop_counters` forgets them, so a batched step run after
+    the drop reads exactly its stages' four counters."""
+    cube, nrm = synthetic.hollow_cube(step=0.2)
+    src = PointCloud.from_points(cube, capacity=512, normals=nrm)
+    moved = src.transform(se3.make_transform(se3.so3_exp(torch.tensor([0.0, 0.0, 0.05])), torch.tensor([0.1, 0.0, 0.0])))
+    gicp_register(pipeline.stack_states([src, src]), pipeline.stack_states([src, moved]),
+                  torch.stack([se3.identity()] * 2), RegistrationConfig(iterations=2))
+    assert {"gicp.member_trips_run", "gicp.member_trips_needed"} <= set(graph.read_counters())
     graph.drop_counters()
-    assert graph.read_counters()["probe"] == 0
+    assert graph.read_counters() == {}
+    cfg = _cfg()
+    seqs = [make_tunnel_sequence(num_scans=12, azimuth_steps=256, step=st, seed=s) for st, s in TUNNELS[:2]]
+    stacked = runner.stack_packed([runner.pack_sequence(s, cfg, max_scans=2, device="cpu") for s in seqs])
+    runner.make_batched_replay(cfg)(pipeline.init_states(cfg, np.stack([s.gt_poses[0] for s in seqs]), device="cpu"),
+                                    stacked)
+    assert set(graph.read_counters()) == {f"{stage}/gicp.member_trips_{k}" for stage in STAGES for k in ("run", "needed")}
+
+
+def test_a_warm_up_records_no_launch_and_no_count():
+    """Where a launch and a count go, by the mode: eager and masked, the
+    ledger and the counter; inside `uncounted()` the launch goes nowhere;
+    a captured step's warm-up records neither, but makes the counter."""
+    graph.drop_counters()
+    kernels.reset_launches()
+    kernels.count_launch("eigh6")
+    with graph.masked():
+        kernels.count_launch("eigh6")
+        graph.count("probe", torch.tensor(2))
+    with kernels.uncounted():
+        kernels.count_launch("eigh6")
+    with graph._masked(recording=False):
+        kernels.count_launch("eigh6")
+        graph.count("probe", torch.tensor(5))
+        graph.count("warm_only", torch.tensor(7))
+    assert kernels.read_launches()["eigh6"] == 2
+    assert graph.read_counters() == {"probe": 2, "warm_only": 0}
+    kernels.reset_launches()
+    graph.drop_counters()
 
 
 def test_a_batched_state_captures_and_a_mesh_still_raises():

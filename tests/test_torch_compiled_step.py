@@ -26,6 +26,7 @@
     of torch would fail any); the launch accounts of captured steps add up
     as the counters read them.
 """
+import collections
 import contextlib
 import dataclasses
 import os
@@ -351,21 +352,22 @@ def test_launch_accounts_add_ungated_once_a_replay_and_regions_by_their_trips():
     the graph sums them in its trips tensor)."""
     from locus_tpu_torch.ops.kernels import read_launches, reset_launches
 
-    class Step:   # stands in for a CapturedStep (the account holds a weak reference)
+    class Step:   # stands in for a CapturedStep (its record holds a weak reference)
         pass
 
     step = Step()
     reset_launches()
-    account = graph._Account(step, {"moments_visits": 1, "nn_visits_map": 1},
-                             [{"nn_visits_scan": 1}, {"nn_visits_scan": 2}], torch.zeros(graph._MAX_REGIONS,
-                                                                                         dtype=torch.int64))
-    graph._accounts.append(account)
-    account.trips[:2] += torch.tensor([7, 1])      # three replays: 2 + 3 + 2 trips, one re-lookup
-    account.replays = 3
+    record = graph._Record(step, collections.Counter({"moments_visits": 1, "nn_visits_map": 1}),
+                           [collections.Counter({"nn_visits_scan": 1}), collections.Counter({"nn_visits_scan": 2})],
+                           torch.zeros(graph._MAX_REGIONS, dtype=torch.int64))
+    graph._register(record)
+    record.trips[:2] += torch.tensor([7, 1])      # three replays: 2 + 3 + 2 trips, one re-lookup
+    record.replays = 3
     counts = read_launches()
     assert (counts["moments_visits"], counts["nn_visits_map"], counts["nn_visits_scan"]) == (3, 3, 9)
-    assert account.replays == 0 and not account.trips.any()
+    assert record.replays == 0 and not record.trips.any()
     assert read_launches()["nn_visits_scan"] == 9      # folded once
     del step
     reset_launches()
-    assert account not in graph._accounts and read_launches()["nn_visits_scan"] == 0
+    graph.drop_replays()        # the record of a step that is gone, with nothing unread, goes
+    assert record not in graph._records and read_launches()["nn_visits_scan"] == 0

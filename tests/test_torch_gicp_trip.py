@@ -21,6 +21,7 @@ machine runs it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gicp_trip.py
 """
+import collections
 import dataclasses
 from pathlib import Path
 
@@ -83,9 +84,9 @@ def _case(name, device):
 
 def _both(src, tgt, guess, cfg):
     """(kernel result, plain result) of one call on the same inputs."""
-    before = tgicp.trip_launches
+    before = kernels.raw_launches()["gicp_trip"]
     fused = rg.gicp_register(src, tgt, guess, cfg)
-    launched = tgicp.trip_launches - before
+    launched = kernels.raw_launches()["gicp_trip"] - before
     with dispatch.no_kernels():
         plain = rg.gicp_register(src, tgt, guess, cfg)
     return fused, plain, launched
@@ -187,19 +188,31 @@ def test_launch_grid_mirrors_gicp_cu():
 
 
 def test_launch_rows_count_the_trips():
-    """`gicp_trip` and `gicp_plain_trips` are rows of the counters: read,
-    added (a captured step's replays), saved, restored and reset."""
+    """`gicp_trip` and `gicp_plain_trips` are rows of the ledger:
+    recorded, left out inside `uncounted()`, added from a captured step's
+    gated region (a trip's launches times the trips it ran), and reset."""
+    class Step:   # stands in for a CapturedStep (its record holds a weak reference)
+        pass
+
     kernels.reset_launches()
-    tgicp.trip_launches, tgicp.plain_trips = 3, 2
-    saved = kernels.save_launches()
+    for row, n in (("gicp_trip", 3), ("gicp_plain_trips", 2)):
+        for _ in range(n):
+            kernels.count_launch(row)
+    with kernels.uncounted():
+        kernels.count_launch("gicp_trip")
     rows = kernels.raw_launches()
     assert (rows["gicp_trip"], rows["gicp_plain_trips"]) == (3, 2)
-    kernels.add_launches({"gicp_trip": 4, "gicp_plain_trips": 1})
-    assert (tgicp.trip_launches, tgicp.plain_trips) == (7, 3)
-    kernels.restore_launches(saved)
-    assert (tgicp.trip_launches, tgicp.plain_trips) == (3, 2)
+    step = Step()
+    record = graph._Record(step, collections.Counter(), [collections.Counter(gicp_trip=1)],
+                           torch.zeros(graph._MAX_REGIONS, dtype=torch.int64))
+    graph._register(record)
+    record.trips[0] += 4
+    record.replays = 1
+    rows = kernels.read_launches()
+    assert (rows["gicp_trip"], rows["gicp_plain_trips"]) == (7, 2)
     kernels.reset_launches()
-    assert (tgicp.trip_launches, tgicp.plain_trips) == (0, 0)
+    rows = kernels.read_launches()
+    assert (rows["gicp_trip"], rows["gicp_plain_trips"]) == (0, 0)
 
 
 def test_masked_predicate_is_the_gates_and():
@@ -364,7 +377,7 @@ def test_trip_kernel_in_a_captured_step_matches_eager(cuda_device):
 @pytest.mark.parametrize("mode", ["recompute", "adaptive", "explicit"])
 def test_full_covariances_keep_the_plain_trip_on_the_card(cuda_device, mode):
     """Covariances that are full 3x3 matrices run the plain trip on the
-    card too, counted in `plain_trips`, with the plain result."""
+    card too, counted in the row `gicp_plain_trips`, with the plain result."""
     src, tgt, _, cfg = _case("rigid", cuda_device)
     kw = {}
     if mode == "explicit":

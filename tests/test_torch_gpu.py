@@ -21,7 +21,7 @@ from locus_tpu_torch import config as cfg_mod, pipeline, runner
 from locus_tpu_torch.core.cloud import PointCloud
 from locus_tpu_torch.io.dataset import make_tunnel_sequence
 from locus_tpu_torch.ops import dispatch, voxel
-from locus_tpu_torch.ops.kernels import moments as tmom, nn as tnn, read_launches, reset_launches
+from locus_tpu_torch.ops.kernels import moments as tmom, nn as tnn, raw_launches, read_launches, reset_launches
 
 pytestmark = pytest.mark.gpu
 
@@ -48,6 +48,16 @@ def _cloud(device, capacity, leaf, seed, shift=(0.0, 0.0, 0.0)):
     return pc.xyz, pc.mask
 
 
+def _nn_row(bt, batched=False):
+    """The launch row of B2 (B3 where `batched`) at chunk size `bt`."""
+    return f"nn_visits{'_batched' if batched else ''}_" + {tnn.SCAN_BT: "scan", tnn.BT: "map"}.get(bt, f"bt{bt}")
+
+
+def _launched_since(before):
+    """The rows that grew since the ledger read `before` (`raw_launches`)."""
+    return {k: v - before.get(k, 0) for k, v in raw_launches().items() if v != before.get(k, 0)}
+
+
 @pytest.mark.parametrize("bt,m,radius", [(512, 4096, 1.0), (2048, 16384, 2.0)])
 def test_nn_kernel_matches_plain(cuda_device, bt, m, radius):
     q, _ = _cloud(cuda_device, 4096, 0.1, 8, shift=(0.1, -0.05, 0.02))
@@ -57,13 +67,13 @@ def test_nn_kernel_matches_plain(cuda_device, bt, m, radius):
     tmin, tmax = tnn.tile_boxes(q)
     cnt, ids = tnn.visit_lists(tmin, tmax, cmin, cmax, radius * radius)
     qp = tnn.pack_query(q)
-    before = tnn.launches[bt]
+    before = raw_launches()
     kd, ki = tnn.nn_visits(cnt, ids, qp, t_aug, bt)
     torch.cuda.synchronize()
-    assert tnn.launches[bt] == before + 1
+    assert _launched_since(before) == {_nn_row(bt): 1}
     with dispatch.no_kernels():
         pd, pi = tnn.nn_visits(cnt, ids, qp, t_aug, bt)
-    assert tnn.launches[bt] == before + 1
+    assert _launched_since(before) == {_nn_row(bt): 1}
     np.testing.assert_array_equal(np_(kd), np_(pd))
     np.testing.assert_array_equal(np_(ki), np_(pi))
 
@@ -71,19 +81,20 @@ def test_nn_kernel_matches_plain(cuda_device, bt, m, radius):
 @pytest.mark.parametrize("batch", [0, 4])
 def test_nn_kernel_sweep_chunk_size_matches_plain(cuda_device, batch):
     """B2/B3 at bt 1024, a chunk size of the map ANN sweep
-    (tools/torch_nn_bench.py) that the pipeline never uses: counted apart,
-    so the pipeline's counters keep their two keys."""
+    (tools/torch_nn_bench.py) that the pipeline never uses: counted on a
+    row of its own, so the pipeline's rows stay as they were."""
     bt = 1024
     cnt, ids, qp, t_aug = _nn_inputs(cuda_device, bt, batch, 2.0)
     run = tnn.nn_visits_batched if batch else tnn.nn_visits
-    before = (dict(tnn.launches), dict(tnn.batched_launches), tnn.other_launches.get((bool(batch), bt), 0))
+    row = f"nn_visits{'_batched' if batch else ''}_bt{bt}"
+    assert _nn_row(bt, bool(batch)) == row
+    before = raw_launches()
     kd, ki = run(cnt, ids, qp, t_aug, bt)
     torch.cuda.synchronize()
-    assert (tnn.launches, tnn.batched_launches) == before[:2]
-    assert tnn.other_launches[bool(batch), bt] == before[2] + 1
+    assert _launched_since(before) == {row: 1}
     with dispatch.no_kernels():
         pd, pi = run(cnt, ids, qp, t_aug, bt)
-    assert tnn.other_launches[bool(batch), bt] == before[2] + 1
+    assert _launched_since(before) == {row: 1}
     np.testing.assert_array_equal(np_(kd.view(torch.int32)), np_(pd.view(torch.int32)))
     np.testing.assert_array_equal(np_(ki), np_(pi))
 
@@ -94,10 +105,10 @@ def test_moments_kernel_matches_plain(cuda_device, leaf):
     r2 = torch.tensor((2.5 * leaf) ** 2, dtype=torch.float32, device=cuda_device).reshape(1)
     cnt, ids = tmom.prune(xyz, xyz, r2)
     q, t = tmom.pack_operands(xyz, xyz)
-    before = tmom.launches
+    before = raw_launches()
     k = tmom.moments_visits(cnt, ids, r2, q, t)
     torch.cuda.synchronize()
-    assert tmom.launches == before + 1
+    assert _launched_since(before) == {"moments_visits": 1}
     with dispatch.no_kernels():
         p = tmom.moments_visits(cnt, ids, r2, q, t)
     valid = np_(torch.all(q[:, :3].abs() < 1e7, dim=1) & (q[:, 3] > 0))
@@ -121,10 +132,10 @@ def test_batched_nn_kernel_matches_plain_and_single(cuda_device, bt, m, radius):
     tmin, tmax = tnn.tile_boxes(q)
     cnt, ids = tnn.visit_lists(tmin, tmax, cmin, cmax, radius * radius)
     qp = tnn.pack_query(q)
-    before = tnn.batched_launches[bt]
+    before = raw_launches()
     kd, ki = tnn.nn_visits_batched(cnt, ids, qp, t_aug, bt)
     torch.cuda.synchronize()
-    assert tnn.batched_launches[bt] == before + 1
+    assert _launched_since(before) == {_nn_row(bt, True): 1}
     with dispatch.no_kernels():
         pd, pi = tnn.nn_visits_batched(cnt, ids, qp, t_aug, bt)
     np.testing.assert_array_equal(np_(kd), np_(pd))
@@ -160,11 +171,11 @@ def _nn_kernel_and_plain(cnt, ids, q, t_aug, bt):
     """Kernel B2 or B3 (one launch, counted) and the plain version on the
     same inputs, as numpy (score bits, index) pairs."""
     batched = q.dim() == 3
-    run, counts = (tnn.nn_visits_batched, tnn.batched_launches) if batched else (tnn.nn_visits, tnn.launches)
-    before = counts[bt]
+    run = tnn.nn_visits_batched if batched else tnn.nn_visits
+    before = raw_launches()
     kd, ki = run(cnt, ids, q, t_aug, bt)
     torch.cuda.synchronize()
-    assert counts[bt] == before + 1
+    assert _launched_since(before) == {_nn_row(bt, batched): 1}
     with dispatch.no_kernels():
         pd, pi = run(cnt, ids, q, t_aug, bt)
     return (np_(kd.view(torch.int32)), np_(ki)), (np_(pd.view(torch.int32)), np_(pi))
@@ -418,10 +429,10 @@ def test_moments_kernel_back_to_back_and_graph_replay(cuda_device):
         tmom.moments_visits(*x)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    before = tmom.launches
+    before = raw_launches()
     with torch.cuda.graph(graph):
         captured = tmom.moments_visits(*x)
-    assert tmom.launches == before + 1
+    assert _launched_since(before) == {"moments_visits": 1}
     for _ in range(2):
         graph.replay()
         other = tmom.moments_visits(*y)
@@ -470,11 +481,11 @@ def test_dense_moments_kernels_match_plain_at_edge_shapes(cuda_device, case):
     and counts on every row, and every B6 member the bits of B5 on its
     inputs."""
     r2, q, t = _dense_inputs(cuda_device, case)
-    before = (tmom.dense_launches, tmom.dense_batched_launches)
+    before = raw_launches()
     k6 = tmom.moments_dense_batched(r2, q, t)
     k5 = [tmom.moments_dense(r2[b:b + 1], q[b].contiguous(), t[b].contiguous()) for b in range(q.shape[0])]
     torch.cuda.synchronize()
-    assert (tmom.dense_launches, tmom.dense_batched_launches) == (before[0] + q.shape[0], before[1] + 1)
+    assert _launched_since(before) == {"moments_dense": q.shape[0], "moments_dense_batched": 1}
     np.testing.assert_array_equal(np_(k6), np_(_dense_plain(r2, q, t)))
     np.testing.assert_array_equal(np_(k5[0]), np_(_dense_plain(r2[:1], q[0], t[0])))
     for b, kb in enumerate(k5):
@@ -603,7 +614,8 @@ def _eager_replay(cfg, seq, dev):
 def test_captured_replay_matches_eager_on_the_card(cuda_device):
     """make_replay_step (one CUDA graph a scan, the GICP trips gated on the
     device) against the eager replay_step on the 12-scan tunnel: every
-    output of every scan bit for bit, and the same launches of B1 and B2."""
+    output of every scan bit for bit, and the same launches of B1 and B2,
+    every one from the replays (the warm-up and the capture record none)."""
     seq = make_tunnel_sequence(num_scans=12, azimuth_steps=256, step=0.3, seed=1)
     cfg = _small_cfg()
     eager, eager_outs, eager_launches = _eager_replay(cfg, seq, cuda_device)
@@ -614,6 +626,7 @@ def test_captured_replay_matches_eager_on_the_card(cuda_device):
         state, out = rstep(state, *runner.scan_inputs(seq, i, cfg, cuda_device))
         for name, a, b in zip(out._fields, out, eager_outs[i]):
             np.testing.assert_array_equal(np_(a), b, err_msg=f"scan {i}: {name}")
+    assert not any(raw_launches().values())
     assert read_launches() == eager_launches
     assert max(int(o[11]) for o in eager_outs) > 1       # loc_iterations: trips ran past the first
 
@@ -836,9 +849,9 @@ def test_ndt_on_the_card_matches_the_cpu(cuda_device, optimizer):
     cfg = cfg_mod.RegistrationConfig(registration_method="ndt", ndt_resolution=1.0, iterations=30,
                                      ndt_optimizer=optimizer)
     src, tgt = _room(cuda_device)
-    before = tnn.launches[tnn.SCAN_BT]
+    before = raw_launches()["nn_visits_scan"]
     card = ndt_register(src, tgt, cfg=cfg)
-    assert tnn.launches[tnn.SCAN_BT] == before + 1
+    assert raw_launches()["nn_visits_scan"] == before + 1
     cpu = ndt_register(PointCloud(*(a.cpu() for a in src)), PointCloud(*(a.cpu() for a in tgt)), cfg=cfg)
     d = np_(card.transform) - np_(cpu.transform)
     assert np.abs(d[:3, 3]).max() < 1e-4 and np.abs(d[:3, :3]).max() < 1e-4, d
@@ -897,10 +910,10 @@ def test_nn_kernel_on_the_voxel_hash_operand_matches_plain(cuda_device):
     num_chunks = st.nn_aug.shape[0] // tnn.BT
     assert float(cnt.float().mean()) > 0.9 * num_chunks
     qp = tnn.pack_query(q)
-    before = tnn.launches[tnn.BT]
+    before = raw_launches()["nn_visits_map"]
     kd, ki = tnn.nn_visits(cnt, ids, qp, st.nn_aug, tnn.BT)
     torch.cuda.synchronize()
-    assert tnn.launches[tnn.BT] == before + 1
+    assert raw_launches()["nn_visits_map"] == before + 1
     pd, pi = tnn.nn_visits_plain(cnt, ids, qp, st.nn_aug, tnn.BT)
     np.testing.assert_array_equal(np_(kd).view(np.int32), np_(pd).view(np.int32))
     np.testing.assert_array_equal(np_(ki), np_(pi))
@@ -935,11 +948,11 @@ def test_paths_on_the_card_match_plain(cuda_device, name):
     plain versions on the card, and launches B2 (B1 except on features)."""
     seq = make_tunnel_sequence(num_scans=5, azimuth_steps=256, step=0.3, seed=1)
     cfg = _path_cfg(name)
-    tmom.launches = 0
-    before = dict(tnn.launches)
+    reset_launches()
     poses, _, _ = runner.run_sequence(seq, cfg)
-    assert all(tnn.launches[b] > before[b] for b in before)
-    assert (tmom.launches > 0) == (name != "features")
+    launches = read_launches()
+    assert launches["nn_visits_scan"] > 0 and launches["nn_visits_map"] > 0, launches
+    assert (launches["moments_visits"] > 0) == (name != "features"), launches
     with dispatch.no_kernels():
         plain, _, _ = runner.run_sequence(seq, cfg, device=cuda_device)
     np.testing.assert_array_equal(poses, plain)
@@ -961,12 +974,12 @@ def test_batched_paths_on_the_card_match_single(cuda_device, name):
         st = pipeline.init_state(cfg, initial_pose=torch.as_tensor(s.gt_poses[0], dtype=torch.float32))
         ref.append(single(st, p)[1])
     states = pipeline.init_states(cfg, np.stack([s.gt_poses[0] for s in seqs]))
-    tmom.launches = tmom.batched_launches = 0
-    before, before_single = dict(tnn.batched_launches), dict(tnn.launches)
+    reset_launches()
     _, batched = runner.make_batched_replay(cfg)(states, runner.stack_packed(packed))
-    assert all(tnn.batched_launches[b] > before[b] for b in before)
-    assert (tmom.batched_launches > 0) == (name != "features")
-    assert tmom.launches == 0 and tnn.launches == before_single
+    launches = read_launches()
+    assert launches["nn_visits_batched_scan"] > 0 and launches["nn_visits_batched_map"] > 0, launches
+    assert (launches["moments_visits_batched"] > 0) == (name != "features"), launches
+    assert not any(launches[k] for k in ("moments_visits", "nn_visits_scan", "nn_visits_map")), launches
     for b in range(len(seqs)):
         for x, y in zip(batched, ref[b]):
             np.testing.assert_array_equal(np_(x[:, b]), np_(y))
@@ -993,10 +1006,10 @@ def test_batched_nn_kernel_on_voxel_hash_operands_matches_plain_and_brute_force(
     num_chunks = st.nn_aug.shape[-2] // tnn.BT
     assert float(cnt.float().mean()) > 0.9 * num_chunks
     qp = tnn.pack_query(q)
-    before = tnn.batched_launches[tnn.BT]
+    before = raw_launches()["nn_visits_batched_map"]
     kd, ki = tnn.nn_visits_batched(cnt, ids, qp, st.nn_aug, tnn.BT)
     torch.cuda.synchronize()
-    assert tnn.batched_launches[tnn.BT] == before + 1
+    assert raw_launches()["nn_visits_batched_map"] == before + 1
     pd, pi = tnn.nn_visits_plain(cnt, ids, qp, st.nn_aug, tnn.BT)
     np.testing.assert_array_equal(np_(kd).view(np.int32), np_(pd).view(np.int32))
     np.testing.assert_array_equal(np_(ki), np_(pi))
@@ -1041,10 +1054,10 @@ def test_reanchored_map_nearest_matches_plain_and_brute_force(cuda_device):
         pick = xyz[kf == k][rng.choice(int((kf == k).sum()), 192)] + rng.normal(size=(192, 3)) * 0.3
         blocks.append(pick[np.argsort(pick[:, 1])])
     q = torch.as_tensor(np.concatenate(blocks).astype(np.float32), device=cuda_device)
-    before = tnn.launches[tnn.BT]
+    before = raw_launches()["nn_visits_map"]
     d2, idx = keyframe_map._map_nearest(mp, q, 1.5)
     torch.cuda.synchronize()
-    assert tnn.launches[tnn.BT] == before + 1
+    assert raw_launches()["nn_visits_map"] == before + 1
     with dispatch.no_kernels():
         pd2, pidx = keyframe_map._map_nearest(mp, q, 1.5)
     np.testing.assert_array_equal(np_(d2), np_(pd2))
@@ -1075,9 +1088,9 @@ def test_closure_gicp_matches_plain(cuda_device):
             b.add_keyframe(float(seq.stamps[i]), seq.gt_poses[i], cloud=cloud(i))
         return b.verify_loop(0, 1)
 
-    before = tnn.launches[tnn.SCAN_BT]
+    before = raw_launches()["nn_visits_scan"]
     T = verify()
-    assert T is not None and tnn.launches[tnn.SCAN_BT] > before
+    assert T is not None and raw_launches()["nn_visits_scan"] > before
     with dispatch.no_kernels():
         plain = verify()
     np.testing.assert_array_equal(T, plain)

@@ -31,7 +31,7 @@ from locus_tpu.ops.dispatch import force_pallas
 from locus_tpu.ops.pallas import moments as jmom
 from locus_tpu_torch.io.dataset import make_tunnel_sequence
 from locus_tpu_torch.ops import normals as tnorm
-from locus_tpu_torch.ops.kernels import moments as tmom
+from locus_tpu_torch.ops.kernels import moments as tmom, raw_launches
 from tests.torch_helpers import np_, to_torch, torch_cloud
 
 LEAVES = [0.1, 0.2, 0.4]
@@ -344,10 +344,10 @@ def test_moments_splits_from_the_shapes():
 
 def test_moments_visits_uses_plain_on_cpu(rng):
     cnt, ids, r2, q, t = _visit_case(rng, 0, False)
-    before = (tmom.launches, tmom.batched_launches)
+    before = raw_launches()
     out = tmom.moments_visits(cnt, ids, r2, q, t)
     np.testing.assert_array_equal(np_(out), np_(tmom.moments_visits_plain(cnt, ids, r2, q, t)))
     cnt, ids, r2, q, t = _visit_case(rng, 2, False)
     out = tmom.moments_visits_batched(cnt, ids, r2, q, t)
     np.testing.assert_array_equal(np_(out), np_(tmom.moments_visits_plain(cnt, ids, r2, q, t)))
-    assert (tmom.launches, tmom.batched_launches) == before
+    assert raw_launches() == before

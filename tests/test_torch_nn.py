@@ -15,7 +15,7 @@ from locus_tpu.core.cloud import PointCloud as JPC
 from locus_tpu.ops import voxel as jvoxel
 from locus_tpu.ops.pallas import nn as jnn
 from locus_tpu_torch.io.dataset import make_tunnel_sequence
-from locus_tpu_torch.ops.kernels import nn as tnn
+from locus_tpu_torch.ops.kernels import nn as tnn, raw_launches
 from tests.torch_helpers import np_, to_torch
 
 D2_ATOL = 1e-5
@@ -220,8 +220,8 @@ def test_nn_visits_splits_from_the_shapes(batch, num_tiles, num_chunks, bt):
 
 def test_nn_visits_uses_plain_on_cpu():
     q, t, tm, r = _bounded_case(512, 300, 1024, 1.0, seed=7)
-    before = dict(tnn.launches)
+    before = raw_launches()
     t_aug = tnn.build_nn_target(to_torch(t), bt=512)
     tmin, tmax = tnn.chunk_boxes(to_torch(t), to_torch(tm), t_aug.shape[0], bt=512)
     tnn.nearest_bounded_pre(to_torch(q), t_aug, to_torch(t), tmin, tmax, r, bt=512)
-    assert tnn.launches == before
+    assert raw_launches() == before

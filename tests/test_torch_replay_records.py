@@ -11,9 +11,9 @@ nor `locus_tpu`, so they run there:
 
     python -m pytest --noconftest -m gpu tests/test_torch_replay_records.py
 """
+import collections
 import dataclasses
 import time
-import weakref
 
 import numpy as np
 import pytest
@@ -127,6 +127,16 @@ class _Owner:
     """A stand-in for a captured step that owns a record."""
 
 
+def _keep(rec, owner):
+    """Keep the stamps `rec` in a record of `owner`'s, as a capture does."""
+    graph._register(graph._Record(owner, collections.Counter(), [], torch.zeros(graph._MAX_REGIONS, dtype=torch.int64),
+                                  stamps=rec))
+
+
+def _kept_stamps():
+    return [r.stamps for r in graph._records if r.stamps is not None]
+
+
 def _host_record(replays):
     rec = graph._Stamps("test.step", torch.device("cpu"))
     rec.stages = [("stage_a", 1, 2)]
@@ -140,7 +150,7 @@ def _host_record(replays):
 def test_host_rows_sit_at_the_replay_index_modulo_the_ring(replays, no_records):
     rec = _host_record(replays)
     owner = _Owner()
-    graph._stamps.append((rec, weakref.ref(owner)))
+    _keep(rec, owner)
     (got,) = graph.replay_records()
     assert got["replays"] == replays and got["step"] == "test.step"
     assert got["stages"] == ["stage_a"] and got["stage_slots"] == [(1, 2)]
@@ -158,12 +168,12 @@ def test_host_rows_sit_at_the_replay_index_modulo_the_ring(replays, no_records):
 def test_reading_the_records_consumes_nothing_and_drop_starts_again(no_records):
     owner = _Owner()
     rec = _host_record(4)
-    graph._stamps.append((rec, weakref.ref(owner)))
+    _keep(rec, owner)
     first, second = graph.replay_records(), graph.replay_records()
     assert len(first) == len(second) == 1
     np.testing.assert_array_equal(first[0]["host_ns"], second[0]["host_ns"])
     graph.drop_replays()
-    assert graph.replay_records() == [] and [s for s, _ in graph._stamps] == [rec]
+    assert graph.replay_records() == [] and _kept_stamps() == [rec]
     rec.add((1, 2, 3))
     assert graph.replay_records()[0]["replays"] == 1
 
@@ -171,11 +181,11 @@ def test_reading_the_records_consumes_nothing_and_drop_starts_again(no_records):
 def test_records_outlive_their_step_until_dropped(no_records):
     owner = _Owner()
     rec = _host_record(2)
-    graph._stamps.append((rec, weakref.ref(owner)))
+    _keep(rec, owner)
     del owner
     assert graph.replay_records()[0]["replays"] == 2
     graph.drop_replays()
-    assert graph._stamps == []
+    assert _kept_stamps() == []
 
 
 def test_stage_timer_keeps_start_and_end():
