@@ -46,11 +46,16 @@ def init_state(num_lidars: int, device=None) -> MergerState:
 
 
 def observe(state: MergerState, lidar_index: int, stamp) -> MergerState:
-    """Record a message reception (health monitor heartbeat)."""
+    """Record a message reception (health monitor heartbeat).
+
+    The stamp reaches the state's device as a kernel argument (`fill_`):
+    an indexed write of a Python number (`last[i] = stamp`) stages it
+    through a CPU tensor and a host-to-device copy that waits for the
+    device, so the merger's host work could not overlap the last step."""
     with diagnostics.process_timer.time("merger.observe"):
         last, alive = state.last_reception.clone(), state.alive.clone()
-        last[lidar_index] = stamp
-        alive[lidar_index] = True
+        last[lidar_index].fill_(stamp)
+        alive[lidar_index].fill_(True)
         return MergerState(last, alive)
 
 
@@ -93,7 +98,9 @@ def merge(
             )
         transformed = []
         for i, (c, T) in enumerate(zip(clouds, extrinsics)):
-            c = c.transform(torch.as_tensor(T, dtype=torch.float32, device=c.xyz.device))
+            # a host transform goes up without waiting for the device (a
+            # copy from pageable memory is staged before the call returns)
+            c = c.transform(torch.as_tensor(T, dtype=torch.float32).to(c.xyz.device, non_blocking=True))
             # upstream pcl/PassThrough per lidar (locus.launch:90-133:
             # z in ±passthrough_limit around base_link, the frame transform
             # itself is the line above)

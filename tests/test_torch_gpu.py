@@ -1165,6 +1165,69 @@ def test_three_lidar_merge_on_the_card_matches_the_cpu(cuda_device, alive):
     assert mask.sum() == sum(int(v.sum()) for (_, v), a in zip(scans, alive) if a)
 
 
+@pytest.mark.parametrize("ext_on", ["host", "card"])
+def test_husky_sweep_on_the_card_never_waits_for_the_card(cuda_device, ext_on):
+    """One husky sweep as the benchmark's replay runs it, after two warm
+    ones: merger.observe x 3, health, merge of the three lidars
+    (configs/husky_sensors.yaml, as numpy arrays or card tensors) at
+    capacity 131,072, then the captured make_replay_step call. Under
+    torch's sync debug mode "error" nothing in it waits for the card, so
+    the host can run ahead of the last replay. The merger state holds the
+    CPU's bits."""
+    import dataclasses
+    from pathlib import Path
+
+    from locus_tpu_torch import merger
+    from locus_tpu_torch.io import sensors, synthetic
+
+    root = Path(__file__).resolve().parent.parent / "configs"
+    cfg = dataclasses.replace(cfg_mod.load_yaml(str(root / "husky.yaml")), raw_scan_capacity=131072)
+    lidars = list(sensors.load_sensor_extrinsics(str(root / "husky_sensors.yaml"))[0].values())
+    ext = lidars if ext_on == "host" else [torch.as_tensor(T, dtype=torch.float32, device=cuda_device) for T in lidars]
+    seq = make_tunnel_sequence(num_scans=3, azimuth_steps=8, step=0.1, seed=1)   # its stamps and sensor windows
+    world = synthetic.BoxWorld.default_tunnel(length=40.0)
+    slot = cfg.raw_scan_capacity // len(lidars)
+    sweeps = []
+    for i in range(3):
+        clouds = []
+        for k, T in enumerate(lidars):
+            pts, valid = synthetic.simulate_scan(world, seq.gt_poses[i] @ T.astype(np.float64), azimuth_steps=1800,
+                                                 seed=3 * i + k)
+            clouds.append(PointCloud.from_points(pts, capacity=slot, mask=valid, device=cuda_device))
+        sweeps.append((clouds, runner.scan_inputs(seq, i, cfg, cuda_device)[2:]))
+    rstep = runner.make_replay_step(cfg, cuda_device)
+
+    def sweep(i, state, mstate):
+        clouds, inputs = sweeps[i]
+        now = float(seq.stamps[i])
+        for k in range(len(lidars)):
+            mstate = merger.observe(mstate, k, now)
+        alive = merger.health(mstate, now, timeout=0.15)
+        merged = merger.merge(clouds, ext, alive, cfg.merger, capacity=cfg.raw_scan_capacity)
+        state, out = rstep(state, merged.xyz, merged.mask, *inputs)
+        return state, mstate, out
+
+    state = pipeline.init_state_from_config(cfg, initial_pose=torch.as_tensor(seq.gt_poses[0], dtype=torch.float32),
+                                            device=cuda_device)
+    mstate = merger.init_state(len(lidars), device=cuda_device)
+    for i in range(2):                     # the capture, then a replay
+        state, mstate, _ = sweep(i, state, mstate)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, mstate, out = sweep(2, state, mstate)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref = merger.init_state(len(lidars), device="cpu")
+    for i in range(3):
+        for k in range(len(lidars)):
+            ref = merger.observe(ref, k, float(seq.stamps[i]))
+    for a, b in zip(mstate, ref):
+        assert a.is_cuda and a.dtype == b.dtype
+        np.testing.assert_array_equal(np_(a), np_(b))
+    assert np.isfinite(np_(out.pose)).all()
+
+
 def _ranks_on_the_card(tmp_path, world, *args, timeout=600):
     """tools/torch_dist_smoke.py as `world` ranks on the one card, their
     collectives through gloo (NCCL takes one rank a device); rank 0's

@@ -78,6 +78,36 @@ def test_health_timeouts_and_resurrection():
             np.testing.assert_array_equal(h, np_(jmerger.health(jst, now=now, timeout=1.0)))
 
 
+def _observe_by_indexing(state, lidar_index, stamp):
+    """`observe` as an indexed write of the Python number: the reference for
+    the bits it stores."""
+    last, alive = state.last_reception.clone(), state.alive.clone()
+    last[lidar_index] = stamp
+    alive[lidar_index] = True
+    return merger.MergerState(last, alive)
+
+
+@pytest.mark.parametrize("stamp", [12345.678901, 1.7e9 + 0.123456, 0.1, np.float64(1698765432.987654)],
+                         ids=["hours", "epoch", "tenth", "np_epoch"])
+@pytest.mark.parametrize("lidar", [0, 1, 2])
+def test_observe_stores_the_indexed_writes_bits(lidar, stamp):
+    """observe writes the stamp without staging it through a host tensor;
+    it stores the f32 bits the indexed write stores (stamps that f32 must
+    round), leaves the state it is given unchanged, and health reads the
+    same flags from it."""
+    state = merger.observe(merger.init_state(3, device="cpu"), (lidar + 1) % 3, 12345.0)
+    before = [x.clone() for x in state]
+    got, ref = merger.observe(state, lidar, stamp), _observe_by_indexing(state, lidar, stamp)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.device == b.device
+    np.testing.assert_array_equal(np_(got.last_reception).view(np.int32), np_(ref.last_reception).view(np.int32))
+    np.testing.assert_array_equal(np_(got.alive), np_(ref.alive))
+    for a, b in zip(state, before):
+        np.testing.assert_array_equal(np_(a), np_(b))
+    for now in (float(stamp) + 0.5, float(stamp) + 2.0, 12345.5):
+        np.testing.assert_array_equal(np_(merger.health(got, now)), np_(merger.health(ref, now)))
+
+
 def test_merge_capacity():
     a = cloudy(np.random.default_rng(0).normal(size=(5, 3)))
     b = cloudy(np.random.default_rng(1).normal(size=(5, 3)))
