@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""The control of the comparison that decides `correct`: the plain
-reference put in the program's place at a lower precision (bfloat16; the
-configurations state float32), on a cell's own traffic at its own size,
-judged against the float64 reference exactly as a run judges the program.
-It has to come out as not correct.
+"""The control of the comparison that decides `correct`: the
+configuration's plain reference put in the program's place at a lower
+precision (bfloat16; the configurations state float32), on a cell's own
+traffic at its own size, judged against the same reference at float64
+exactly as a run judges the program. It has to come out as not correct.
 
     python benchmark/control.py --workload <cell> --seeds <n> [<n> ...] [--seconds <s>]
 
@@ -30,8 +30,7 @@ def control(root: Path, name: str, seed: int, seconds: float, device: str = "cud
             overrides: dict | None = None) -> dict:
     import torch
 
-    from harness import cells, check, generate
-    from reference import locus_ref
+    from harness import cells, check
 
     c = cells.cell(root, cells.load(root), name)
     if overrides:
@@ -41,10 +40,8 @@ def control(root: Path, name: str, seed: int, seconds: float, device: str = "cud
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     robots = cells.driver(root, mix["driver"]).traffic(conf, mix, seed, seconds, dev)
-    refs = check.reference(conf, robots, dev)
-    low = [locus_ref.replay(conf["locus"], generate.extrinsics(conf["sensor"]), sw.xyz, sw.valid, sw.stamps, sw.gt[0],
-                            (sw.imu_stamps, sw.imu_quats), (sw.odom_stamps, sw.odom_poses), dev,
-                            dtype=getattr(torch, LOW)) for sw in robots]
+    refs = check.reference(root, conf, robots, dev)
+    low = check.reference(root, conf, robots, dev, dtype=getattr(torch, LOW))
     numbers, per = check.gaps([(r, 0, p, z) for r, (p, z) in enumerate(low)], refs)
     correct, failed, shown = check.judge(numbers, per, check.load_limits(root, name))
     return {"workload": name, "seed": seed, "dtype": LOW, "sweeps": int(per.shape[0]), "correct": correct,

@@ -2,7 +2,9 @@
 checkout names each cell's configuration and traffic mix; the
 configuration's file is `configs[].file`, the mix is
 `benchmark/traffic/<traffic>.json`, whose `driver` key names the driver,
-`benchmark/drivers/<driver>.py`; the limits of its comparison are
+`benchmark/drivers/<driver>.py`; the configuration's `reference` key
+names the plain reference it is checked against,
+`benchmark/reference/<reference>.py`; the limits of its comparison are
 `benchmark/limits/<cell>.json`, and each per-layer metric is read by
 `benchmark/metrics/<metric>.py`. Adding any of them is adding a file and
 an entry; nothing here names one."""
@@ -11,6 +13,7 @@ from __future__ import annotations
 import copy
 import importlib.util
 import json
+import sys
 from pathlib import Path
 
 
@@ -52,6 +55,7 @@ def _module(path: Path, kind: str):
         raise KeyError(f"no {kind} {path.stem!r}")
     spec = importlib.util.spec_from_file_location(f"benchmark_{kind}_{path.stem.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod     # a dataclass looks its module up there
     spec.loader.exec_module(mod)
     return mod
 
@@ -65,3 +69,9 @@ def driver(root: Path, name: str):
     """The module benchmark/drivers/<name>.py (`harness.program` says what
     it holds)."""
     return _module(root / "benchmark" / "drivers" / f"{name}.py", "driver")
+
+
+def reference(root: Path, name: str):
+    """The module benchmark/reference/<name>.py: a plain reference, with
+    `replay(...)` (`harness.check.reference` says how it is called)."""
+    return _module(root / "benchmark" / "reference" / f"{name}.py", "reference")

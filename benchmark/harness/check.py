@@ -1,6 +1,7 @@
 """The comparison that decides `correct`: every sweep the program
 processed, of every robot, against the plain reference's replay of the
-same sweeps.
+same sweeps. The reference is the one the configuration names by its
+`reference` key (default DEFAULT_REFERENCE): `benchmark/reference/<name>.py`.
 
 Numbers compared, over every sweep of every pass:
 - pose_gap_m: the largest distance between the program's and the reference's
@@ -25,7 +26,9 @@ import math
 from pathlib import Path
 
 import numpy as np
+import torch
 
+DEFAULT_REFERENCE = "locus_ref"
 NUMBERS = ("pose_gap_m", "step_gap_m", "step_rot_rad", "map_size_gap")
 
 
@@ -67,13 +70,16 @@ def gaps(outputs, refs) -> tuple[dict, np.ndarray]:
     return worst, per
 
 
-def reference(conf: dict, robots: list, dev) -> list:
-    """The plain reference's (poses, map sizes) over each robot's sweeps."""
-    from harness import generate
-    from reference import locus_ref
+def reference(root: Path, conf: dict, robots: list, dev, dtype=torch.float64) -> list:
+    """The configuration's plain reference's (poses, map sizes) over each
+    robot's sweeps, its geometry at `dtype` (the control asks for a lower
+    precision than float64). A reference refuses a configuration whose path
+    it does not follow, with a ValueError naming the key."""
+    from harness import cells, generate
 
-    return [locus_ref.replay(conf["locus"], generate.extrinsics(conf["sensor"]), sw.xyz, sw.valid, sw.stamps,
-                             sw.gt[0], (sw.imu_stamps, sw.imu_quats), (sw.odom_stamps, sw.odom_poses), dev)
+    ref = cells.reference(root, conf.get("reference", DEFAULT_REFERENCE))
+    return [ref.replay(conf["locus"], generate.extrinsics(conf["sensor"]), sw.xyz, sw.valid, sw.stamps, sw.gt[0],
+                       (sw.imu_stamps, sw.imu_quats), (sw.odom_stamps, sw.odom_poses), dev, dtype=dtype)
             for sw in robots]
 
 

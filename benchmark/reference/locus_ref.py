@@ -23,6 +23,13 @@ Brute-force neighbour searches replace the program's pruned kernels, and
 torch.linalg replaces its closed-form solves. Geometry is held in `dtype`;
 the 3x3 and 6x6 eigen- and linear solves run in float32 at the least,
 since PyTorch has no lower-precision solver.
+
+`Reference.PATH` lists every key whose value chooses the path and that this
+module follows rather than reads; a configuration that leaves that path is
+refused with a ValueError naming the key. A reference of another path is a
+sibling file that subclasses `Reference`, replaces `register` (both
+registrations go through it) and the entries of `PATH` it covers, and
+passes its class to `replay`.
 """
 from __future__ import annotations
 
@@ -270,12 +277,64 @@ def gate(T: torch.Tensor, reg: dict) -> bool:
     return float(T[:3, 3].norm()) <= reg["max_translation"] and euler_norm(T[:3, :3]) <= reg["max_rotation"]
 
 
+def _stated(locus: dict, key: str):
+    node = locus
+    for part in key.split("."):
+        if not isinstance(node, dict) or part not in node:
+            raise ValueError(f"locus.{key} is not stated: the reference follows only the values it knows")
+        node = node[part]
+    return node
+
+
+def _same(value, allowed) -> bool:
+    return any(type(value) is type(a) and value == a for a in allowed)
+
+
 class Reference:
     """One robot's front end. `locus` is the configuration's "locus" block
     (every parameter on this path, stated in the file); `extrinsics` (L, 4,
     4) the lidar -> base transforms."""
 
+    # Each key whose value chooses the path, and the values this reference
+    # follows. Where the program's fusion in mode 3 integrates the
+    # interpolated odometry, the reference still takes the nearest sample:
+    # `__init__` refuses that pair as well.
+    PATH = {
+        "odometry.registration_method": ("gicp",),
+        "odometry.covariance_mode": ("normals",),
+        "odometry.recompute_covariances": (False,),
+        "odometry.transform_thresholding": (True,),
+        "localization.registration.registration_method": ("gicp",),
+        "localization.registration.covariance_mode": ("normals",),
+        "localization.registration.recompute_covariances": (False,),
+        "localization.registration.transform_thresholding": (True,),
+        "filtering.normals_method": ("radius",),
+        "filtering.extract_features": (False,),
+        "filtering.random_filter": (False,),
+        "filtering.grid_filter": (False,),
+        "filtering.outlier_filter": (False,),
+        "filtering.radius_filter": (False,),
+        "mapper.structure": ("ring",),
+        "mapper.keyframe_at_map_resolution": (False,),
+        "fusion.data_integration_mode": (1, 3),
+        "fusion.b_convert_imu_to_base_link_frame": (False,),
+        "merger.b_use_random_filter": (False,),
+        "merger.b_use_radius_filter": (False,),
+        "b_monitor_space": (False,),
+        "b_is_flat_ground_assumption": (False,),
+        "b_add_keyframes_enabled": (True,),
+        "b_run_with_gt_point_cloud": (False,),
+    }
+
     def __init__(self, locus: dict, extrinsics, initial_pose, device, dtype=torch.float64):
+        for key, allowed in self.PATH.items():
+            value = _stated(locus, key)
+            if not _same(value, allowed):
+                raise ValueError(f"locus.{key}={value!r}: this reference follows only {allowed}")
+        mode = _stated(locus, "fusion.data_integration_mode")
+        if mode == 3 and _stated(locus, "fusion.b_integrate_interpolated_odom"):
+            raise ValueError("locus.fusion.b_integrate_interpolated_odom=True with data_integration_mode 3: "
+                             "this reference takes the odometry sample nearest the sweep")
         self.c, self.dtype, self.dev = locus, dtype, torch.device(device)
         self.ext = torch.as_tensor(extrinsics, dtype=dtype, device=self.dev)
         P0 = torch.as_tensor(initial_pose, dtype=dtype, device=self.dev)
@@ -305,15 +364,13 @@ class Reference:
         return torch.cat(parts)[: self.c["raw_scan_capacity"]]
 
     def prior(self, stamp: float, imu, odom) -> torch.Tensor:
-        """The GICP warm start: the IMU's rotation delta since the last
-        sweep (mode 1, 2 yaw only) or the wheel odometry's delta (mode 3),
-        each from the sample nearest the sweep's stamp within
-        max_buffer_staleness among those received; identity on the first."""
+        """The registration's warm start: the IMU's rotation delta since the
+        last sweep (mode 1) or the wheel odometry's delta (mode 3), each from
+        the sample nearest the sweep's stamp within max_buffer_staleness
+        among those received; identity on the first."""
         f = self.c["fusion"]
         mode = f["data_integration_mode"]
-        if mode == 0:
-            return _eye(self.dtype, self.dev)
-        stamps, rows = odom if mode >= 3 else imu
+        stamps, rows = odom if mode == 3 else imu
         sel = np.nonzero(stamps <= stamp + 1e-9)[0]
         if sel.size == 0:
             return _eye(self.dtype, self.dev)
@@ -325,16 +382,17 @@ class Reference:
         if prev is None:
             return _eye(self.dtype, self.dev)
         out = torch.eye(4, dtype=torch.float64)
-        if mode >= 3:
+        if mode == 3:
             out = inverse(torch.as_tensor(prev, dtype=torch.float64)) @ torch.as_tensor(cur, dtype=torch.float64)
         else:
-            R = quat_to_matrix(quat_delta(prev, cur))
-            if mode == 2:
-                yaw = math.atan2(float(R[1, 0]), float(R[0, 0]))
-                R = torch.tensor([[math.cos(yaw), -math.sin(yaw), 0.0], [math.sin(yaw), math.cos(yaw), 0.0],
-                                  [0.0, 0.0, 1.0]], dtype=torch.float64)
-            out[:3, :3] = R
+            out[:3, :3] = quat_to_matrix(quat_delta(prev, cur))
         return out.to(self.dtype).to(self.dev)
+
+    def register(self, src, src_n, tgt, tgt_n, guess, reg: dict) -> torch.Tensor:
+        """The source -> target transform, guess included: scan-to-scan
+        (`reg` the odometry's) and scan-to-submap (the localization's) both
+        come here. This reference's registration is plane-disk GICP."""
+        return gicp(src, src_n, tgt, tgt_n, guess, reg)
 
     # -- one sweep -------------------------------------------------------------
     def step(self, raw: torch.Tensor, stamp: float, imu, odom):
@@ -360,7 +418,7 @@ class Reference:
         # scan-to-scan
         performed = s.prev_xyz is not None
         if performed:
-            T = gicp(xyz, nrm, s.prev_xyz, s.prev_n, guess, c["odometry"])
+            T = self.register(xyz, nrm, s.prev_xyz, s.prev_n, guess, c["odometry"])
             if gate(T, c["odometry"]):
                 s.odom_inc = T
                 s.odom_int = orthonormalize(s.odom_int @ T)
@@ -381,7 +439,7 @@ class Reference:
             nb_s = nb @ Pinv[:3, :3].T + Pinv[:3, 3]
             nb_ns = nb_n @ Pinv[:3, :3].T
             lreg = c["localization"]["registration"]
-            T2 = gicp(xyz, nrm, nb_s, nb_ns, _eye(dt, dev), lreg)
+            T2 = self.register(xyz, nrm, nb_s, nb_ns, _eye(dt, dev), lreg)
             if gate(T2, lreg):
                 inc = inc @ T2
             s.loc_int = orthonormalize(s.loc_int @ inc)
@@ -429,12 +487,13 @@ class Reference:
 
 
 def replay(locus: dict, extrinsics, sweeps_xyz, sweeps_valid, stamps, gt0, imu, odom, device,
-           dtype=torch.float64, count=None):
+           dtype=torch.float64, count=None, cls=Reference):
     """The reference over the first `count` sweeps (default: all): poses
     (S, 4, 4) float64 and map sizes (S,) on the host. sweeps_xyz (S, L, R,
     3) and sweeps_valid (S, L, R) are the lidars' own clouds; imu and odom
-    are (stamps, rows) pairs of host arrays."""
-    ref = Reference(locus, extrinsics, gt0, device, dtype)
+    are (stamps, rows) pairs of host arrays. `cls` is the front end it
+    builds: `Reference` or a subclass of it."""
+    ref = cls(locus, extrinsics, gt0, device, dtype)
     n = len(stamps) if count is None else count
     poses, sizes = [], []
     for i in range(n):

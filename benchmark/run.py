@@ -8,10 +8,10 @@ cache, the traffic made from the seed on the card, the warm-up) is timed
 from the start of this process to the start of the window. The window
 measures the cell's end-to-end metrics (--trace 0), or, with --trace 1,
 traces a segment of it and reports the per-layer metrics. After the window
-the program's state is freed and the plain reference replays the same
-sweeps; the last line of standard output is one JSON object, and the
-numbers compared with the reference, each beside its limit, are the last
-lines of standard error.
+the program's state is freed and the configuration's plain reference
+replays the same sweeps; the last line of standard output is one JSON
+object, and the numbers compared with the reference, each beside its
+limit, are the last lines of standard error.
 
 Exits 2 without a CUDA card (or with fewer than the cell asks for), and
 3 if any of the JAX modules or the JAX package were loaded.
@@ -107,7 +107,7 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, traced: bool, dev
 
     # the plain reference over the same sweeps, after the program's state is gone
     t_ref = time.perf_counter()
-    numbers, per = check.gaps(w.outputs, check.reference(conf, robots, dev))
+    numbers, per = check.gaps(w.outputs, check.reference(root, conf, robots, dev))
     correct, failed, shown = check.judge(numbers, per, check.load_limits(root, name))
     t_ref = time.perf_counter() - t_ref
 

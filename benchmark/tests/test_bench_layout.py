@@ -1,6 +1,7 @@
 """BENCHMARK.json keeps to its contract's shape, and a cell made of newly
-added files alone (a configuration, a traffic mix, a per-layer metric, the
-limits of its comparison) is found and run with no edit to any file."""
+added files alone (a configuration, a traffic mix, a per-layer metric, a
+reference, the limits of its comparison) is found and run with no edit to
+any file."""
 from __future__ import annotations
 
 import json
@@ -162,3 +163,91 @@ def test_a_driver_and_an_end_to_end_metric_of_new_files_alone_run(tmp_path, monk
     assert result["metrics"]["robot_ms_per_scan"]["value"] > 0
     assert result["attempted"] == 2 * 8
     assert result["correct"] is (not fault), result["check"]
+
+
+# A plain reference of new files alone: locus_ref's front end, with the
+# result of its registration (scan-to-scan and scan-to-submap) moved along x.
+SHIFTED_REF = '''
+from reference import locus_ref
+
+
+class Shifted(locus_ref.Reference):
+    def register(self, src, src_n, tgt, tgt_n, guess, reg):
+        T = super().register(src, src_n, tgt, tgt_n, guess, reg).clone()
+        T[0, 3] += {shift}
+        return T
+
+
+def replay(*args, **kwargs):
+    return locus_ref.replay(*args, cls=Shifted, **kwargs)
+'''
+
+
+def _add_reference(root, shift: float):
+    """A copy of the benchmark under `root` with a reference, a
+    configuration that names it (spot's otherwise) and its cell, all new
+    files and entries."""
+    bench = _copy(root)
+    (root / "benchmark" / "reference" / "shifted_ref.py").write_text(SHIFTED_REF.format(shift=shift))
+    conf = json.loads((BENCH / "configs" / "spot.json").read_text())
+    conf["name"], conf["reference"] = "shifted", "shifted_ref"
+    (root / "benchmark" / "configs" / "shifted.json").write_text(json.dumps(conf))
+    shutil.copy(BENCH / "limits" / "spot.replay.json", root / "benchmark" / "limits" / "shifted.replay.json")
+    bench["configs"].append({"name": "shifted", "source": "a test", "file": "benchmark/configs/shifted.json",
+                             "reduced": [], "why": "a test"})
+    bench["workloads"].append({"name": "shifted.replay", "config": "shifted", "traffic": "replay", "chips": 1,
+                               "why": "a test"})
+    bench["end_to_end"][0]["workloads"].append("shifted.replay")
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+
+@pytest.mark.parametrize("shift", [0.0, 0.5])
+def test_a_reference_of_new_files_alone_checks_its_cell(tmp_path, shift):
+    """The cell is judged against the reference its configuration names:
+    the program comes out correct against locus_ref's registration moved
+    by nothing, and not correct against it moved by 0.5 m."""
+    import run
+
+    _add_reference(tmp_path, shift)
+    result, _ = run.run_cell(tmp_path, "shifted.replay", SEED, 0.1, False, device="cpu", overrides=tiny("spot"))
+    assert result["correct"] is (shift == 0.0), result["check"]
+    if shift:
+        assert result["failed"] > 0
+
+
+def test_naming_locus_ref_gives_the_check_values_of_the_default():
+    import run
+
+    over = tiny("spot.replay")
+    named = dict(over, config=dict(over["config"], reference="locus_ref"))
+    default, _ = run.run_cell(ROOT, "spot.replay", SEED, 0.1, False, device="cpu", overrides=over)
+    explicit, _ = run.run_cell(ROOT, "spot.replay", SEED, 0.1, False, device="cpu", overrides=named)
+    assert explicit["check"] == default["check"]
+    assert (explicit["correct"], explicit["attempted"], explicit["failed"]) == (
+        default["correct"], default["attempted"], default["failed"])
+
+
+def test_the_control_runs_the_named_reference_at_bfloat16(tmp_path, monkeypatch):
+    import torch
+
+    import control
+    from harness import cells
+
+    _add_reference(tmp_path, 0.5)
+    calls = []
+    load = cells.reference
+
+    def spied(root, name):
+        mod = load(root, name)
+        replay = mod.replay
+
+        def recorded(*args, dtype=torch.float64, **kwargs):
+            calls.append((name, dtype))
+            return replay(*args, dtype=dtype, **kwargs)
+        mod.replay = recorded
+        return mod
+
+    monkeypatch.setattr(cells, "reference", spied)
+    rec = control.control(tmp_path, "shifted.replay", SEED, 0.1, device="cpu", overrides=tiny("spot"))
+    assert calls == [("shifted_ref", torch.float64), ("shifted_ref", torch.bfloat16)]
+    assert rec["correct"] is False, rec
